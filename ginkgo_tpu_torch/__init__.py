@@ -1,0 +1,22 @@
+"""ginkgo_tpu_torch — the PyTorch/CUDA port of ``ginkgo_tpu``.
+
+The same public names and semantics as the JAX package, on PyTorch
+tensors.  Plain tensor code is PyTorch; each Pallas kernel of the JAX
+package becomes a kernel written by hand for Hopper (``ops/csrc/``),
+compiled by ``nvcc`` at first use.  Entry points place their tensors on the
+CUDA device unless the caller passes ``device="cpu"``.  The package imports
+neither ``jax`` nor ``ginkgo_tpu``.
+"""
+
+from .base.exceptions import (GinkgoError, DimensionMismatch, BadDimension,
+                              ValueMismatch, UnsupportedMatrixProperty,
+                              NotSupportedError, OutOfBoundsError)
+from .base.matrix_data import MatrixData
+from .base.linop import LinOp
+from .matrix.csr import Csr
+from .matrix.coo import Coo
+from .matrix.diagonal import Diagonal
+from .matrix.identity import Identity
+from .device import resolve_device
+
+__version__ = "0.1.0"

@@ -1,0 +1,29 @@
+"""Value type helpers (``ginkgo_tpu/base/dtypes.py`` over torch dtypes).
+
+Every helper takes a torch dtype or anything numpy reads as a dtype
+(``np.float32``, ``"float64"``), so host planning code and device code
+share one vocabulary.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def as_torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of ``dtype`` (a torch dtype or a numpy-style one)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
+def real_dtype(dtype) -> torch.dtype:
+    """The real counterpart of a value type (f32 for c64, etc.)."""
+    d = as_torch_dtype(dtype)
+    return d.to_real() if d.is_complex else d
+
+
+def eps(dtype) -> float:
+    """Machine epsilon of the *real* part of the value type."""
+    return float(torch.finfo(real_dtype(dtype)).eps)

@@ -1,0 +1,21 @@
+"""Where the port's entry points put their tensors.
+
+The port runs on the card: an entry point given ``device=None`` places its
+tensors on ``cuda`` and raises when there is none.  The host is used only
+when the caller asks for it (``device="cpu"``), as the CPU tests do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda`` (raises without a GPU); else ``torch.device``."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "ginkgo_tpu_torch runs on a CUDA device by default and none "
+                "is available; pass device='cpu' to run on the host")
+        return torch.device("cuda")
+    return torch.device(device)

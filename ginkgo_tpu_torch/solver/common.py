@@ -1,0 +1,295 @@
+"""Shared iterative-solver driver (``ginkgo_tpu/solver/common.py`` in torch).
+
+Ginkgo factors each solver into an ``apply_dense_impl`` host loop calling
+fused per-iteration kernels (``core/solver/cg.cpp:92-180``) with
+device-side per-column ``stopping_status``.  Here the loop is a Python loop
+over tensors that syncs once per iteration (``any(active)``); the status
+masks stay on the device, and converged columns are frozen by a masked
+update (Ginkgo's per-column stopping semantics, multi-RHS included).
+
+Solver-state convention: every tensor in the state dict has a trailing
+RHS-column axis k — vectors are (n, k), iteration scalars are (k,) — so one
+``where(active)`` broadcast freezes stopped columns across the whole state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..base.linop import LinOp, as_multivector
+from ..matrix.dense import compute_norm2
+from ..matrix.identity import Identity
+from ..stop.criterion import Criterion, as_criterion, has_host_side
+
+DEFAULT_TRIP_CAP = 100_000
+
+
+@dataclasses.dataclass
+class SolveResult:
+    """What Ginkgo's Convergence logger captures, as a return value."""
+
+    x: torch.Tensor              # solution, caller's rank
+    iterations: torch.Tensor     # (k,) int32 per-column iteration count
+    resnorm: torch.Tensor        # (k,) final recurrent residual norm
+    converged: torch.Tensor      # (k,) bool
+    resnorm_history: Optional[torch.Tensor] = None
+    # (k,) bool: the estimate-based criterion fired but the TRUE residual
+    # missed the tolerance and retries ran out.
+    stagnated: Optional[torch.Tensor] = None
+
+
+def _tree_map(fn, *trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {key: _tree_map(fn, *(t[key] for t in trees)) for key in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_tree_map(fn, *items) for items in zip(*trees))
+    return fn(*trees)
+
+
+def mask_cols(active, new, old):
+    """Freeze stopped columns: per-tensor where() with trailing-k broadcast."""
+
+    def sel(n, o):
+        if n.ndim == 0:
+            return n  # global scalars advance regardless
+        m = active.reshape((1,) * (n.ndim - 1) + (-1,))
+        return torch.where(m, n, o)
+
+    return _tree_map(sel, new, old)
+
+
+def prepare_rhs(A, b, x0):
+    """Canonicalise b/x0 to (n, k); returns (b2, x2, squeeze).
+
+    ``x0`` may be a tensor (provided guess), None (zero guess), or one of
+    the ``initial_guess_mode`` names 'zero'/'rhs' from Ginkgo's
+    ApplyWithInitialGuess (``solver_base.hpp:33``)."""
+    if A.shape[0] != A.shape[1]:
+        raise ValueError(f"iterative solvers need a square operator, "
+                         f"got {A.shape}")
+    b2, squeeze = as_multivector(b)
+    if b2.shape[0] != A.shape[0]:
+        raise ValueError(f"rhs rows {b2.shape[0]} != op rows {A.shape[0]}")
+    if x0 is None or (isinstance(x0, str) and x0 == "zero"):
+        x2 = torch.zeros_like(b2)
+    elif isinstance(x0, str) and x0 == "rhs":
+        x2 = b2
+    elif isinstance(x0, str):
+        raise ValueError(f"unknown initial_guess_mode {x0!r}")
+    else:
+        x2, _ = as_multivector(x0)
+    return b2, x2, squeeze
+
+
+def resolve_precond(preconditioner, A):
+    """None -> Identity; factory-like (has .generate) -> generate(A)."""
+    if preconditioner is None:
+        return Identity(size=A.shape[0])
+    if hasattr(preconditioner, "generate") and not isinstance(
+            preconditioner, LinOp):
+        return preconditioner.generate(A)
+    return preconditioner
+
+
+def run_iteration_loop(step_fn, make_check_args, state0, criterion: Criterion,
+                       b, r0_norm, b_norm, *, trace: bool = False,
+                       trip_cap: int | None = None, restart_fn=None,
+                       verify_retries: int = 2):
+    """The host loop shared by the Krylov solvers.
+
+    step_fn(state) -> state'        one iteration (unmasked)
+    make_check_args(state, it) -> CheckArgs
+
+    ``restart_fn(state) -> state`` (optional) re-initializes the solver
+    from its current iterate with a TRUE residual r = b - A x.  When
+    given, estimate-based convergence is AUDITED: once the loop stops,
+    the criterion is re-checked against the recomputed residual; a
+    column whose recurrent estimate fired but whose true residual
+    misses is restarted and continues (up to ``verify_retries`` times),
+    after which it reports ``stagnated`` instead of claiming a
+    convergence the true residual contradicts.  A criterion that reads
+    the host clock (``Time``) runs the plain loop without the audit and
+    fires the per-iteration logger events, as in the JAX package.
+
+    ``trace=True`` (per-iteration residual history) is not ported yet.
+    """
+    if trace:
+        raise NotImplementedError(
+            "trace=True (the per-iteration residual history scan of "
+            "ginkgo_tpu/solver/common.py:226-234) is not ported yet")
+    criterion = as_criterion(criterion)
+    crit_state = criterion.init(b, r0_norm, b_norm)
+    cap = trip_cap if trip_cap is not None else (
+        criterion.max_trip_count() or DEFAULT_TRIP_CAP)
+    k = b.shape[1]
+
+    args0 = make_check_args(state0, 0)
+    stop0, conv0, crit_state = criterion.check(crit_state, args0)
+    carry0 = dict(state=state0, crit=crit_state, it=0, active=~stop0,
+                  converged=conv0,
+                  iters=torch.zeros((k,), dtype=torch.int32,
+                                    device=b.device))
+
+    # With a single RHS column there is nothing to freeze: the loop exits
+    # as soon as the one column stops, so the per-column select is waste.
+    single_col = k == 1
+    host_side = has_host_side(criterion)
+
+    def body(carry):
+        new_state = step_fn(carry["state"])
+        state = (new_state if single_col else
+                 mask_cols(carry["active"], new_state, carry["state"]))
+        it = carry["it"] + 1
+        args = make_check_args(state, it)
+        stop, conv, crit = criterion.check(carry["crit"], args)
+        newly = carry["active"] & stop
+        if host_side:
+            _log_iteration(it, stop, conv)
+        return dict(
+            state=state, crit=crit, it=it,
+            active=carry["active"] & ~stop,
+            converged=carry["converged"] | (newly & conv),
+            iters=carry["iters"] + carry["active"].to(torch.int32))
+
+    def run(carry):
+        while carry["it"] < cap and bool(carry["active"].any()):
+            carry = body(carry)
+        return carry
+
+    if restart_fn is None or host_side:
+        return run(carry0), None
+
+    def audit(oc):
+        c = run(oc["carry"])
+        s2 = restart_fn(c["state"])
+        args = make_check_args(s2, c["it"])
+        _, conv_t, crit_t = criterion.check(c["crit"], args)
+        # estimate-claimed convergence the true residual contradicts
+        bogus = c["converged"] & ~conv_t
+        out_of = oc["audits"] >= verify_retries     # a Python bool
+        redo = bogus & (not out_of)
+        state = s2 if single_col else mask_cols(redo, s2, c["state"])
+        c2 = dict(c, state=state, crit=crit_t, active=redo,
+                  converged=c["converged"] & ~bogus)
+        return dict(carry=c2,
+                    stagnated=oc["stagnated"] | (bogus & out_of),
+                    audits=oc["audits"] + 1)
+
+    oc = audit(dict(carry=carry0,
+                    stagnated=torch.zeros((k,), dtype=torch.bool,
+                                          device=b.device),
+                    audits=0))
+    while oc["carry"]["it"] < cap and bool(oc["carry"]["active"].any()):
+        oc = audit(oc)
+    return dict(oc["carry"], stagnated=oc["stagnated"]), None
+
+
+def _log_iteration(it, stop, conv):
+    from ..log import logger as _log
+    if _log.has_loggers():
+        _log.dispatch(_log.ITERATION_COMPLETE, iteration=int(it))
+        _log.dispatch(_log.CRITERION_CHECK_COMPLETED, iteration=int(it),
+                      num_stopped=int(stop.sum()),
+                      num_converged=int((conv & stop).sum()))
+
+
+def finish(final, history, x, r, squeeze):
+    """Assemble a SolveResult from the loop carry + extracted x, r."""
+    resnorm = compute_norm2(r)
+    result = SolveResult(
+        x=x[:, 0] if squeeze else x,
+        iterations=final["iters"],
+        resnorm=resnorm,
+        converged=final["converged"],
+        resnorm_history=history,
+        stagnated=final.get("stagnated"))
+    from ..log import logger as _log
+    if _log.has_loggers():
+        _log.dispatch(_log.SOLVE_COMPLETED, result=result)
+    return result
+
+
+def safe_div(num, den):
+    """num/den with 0/0 -> 0 (stopped columns carry zeroed updates)."""
+    safe = torch.where(den == 0, torch.ones_like(den), den)
+    return torch.where(den == 0, torch.zeros_like(num), num / safe)
+
+
+# ---------------------------------------------------------------------------
+# Solver-as-LinOp + fluent factory machinery: ``Cg.build(criteria=...,
+# preconditioner=...).generate(A)`` yields a LinOp whose apply solves.
+# ---------------------------------------------------------------------------
+
+
+class SolverOp(LinOp):
+    """A generated solver: LinOp whose apply runs ``solve_fn``."""
+
+    def __init__(self, system_matrix, preconditioner=None, criteria=None,
+                 solve_fn=None, name="solver", params=()):
+        self.system_matrix = system_matrix
+        self.preconditioner = preconditioner
+        self.criteria = criteria
+        self.solve_fn = solve_fn
+        self.name = name
+        self.params = tuple(params)
+
+    @property
+    def shape(self):
+        return self.system_matrix.shape
+
+    def _apply(self, b):
+        return self.solve(b).x
+
+    def solve(self, b, x0=None, **kw):
+        kwargs = dict(self.params)
+        if self.preconditioner is not None:
+            kwargs["preconditioner"] = self.preconditioner
+        kwargs.update(kw)
+        return self.solve_fn(self.system_matrix, b, x0,
+                             criteria=self.criteria, **kwargs)
+
+
+class SolverFactory:
+    """The ``build()`` product: holds params, generates SolverOps."""
+
+    def __init__(self, solve_fn, name, params):
+        self.solve_fn = solve_fn
+        self.name = name
+        self.params = dict(params)
+
+    def generate(self, A) -> SolverOp:
+        from ..log import logger as _log
+        _log.dispatch(_log.FACTORY_GENERATE_STARTED, op_type=self.name,
+                      op_id=id(self))
+        params = dict(self.params)
+        criteria = params.pop("criteria", None)
+        M = params.pop("preconditioner", None)
+        if M is not None:
+            M = resolve_precond(M, A)
+        op = SolverOp(system_matrix=A, preconditioner=M, criteria=criteria,
+                      solve_fn=self.solve_fn, name=self.name,
+                      params=sorted(params.items()))
+        _log.dispatch(_log.FACTORY_GENERATE_COMPLETED, op_type=self.name,
+                      op_id=id(self))
+        return op
+
+
+class SolverAPI:
+    """Class-like facade: ``Cg.build(...)`` / ``Cg.solve(A, b, ...)``."""
+
+    def __init__(self, name, solve_fn):
+        self.__name__ = self.name = name
+        self.solve = solve_fn
+
+    def build(self, **params) -> SolverFactory:
+        return SolverFactory(self.solve, self.name, params)
+
+    def __call__(self, **params) -> SolverFactory:
+        return self.build(**params)
+
+    def __repr__(self):
+        return f"<solver {self.name}>"
