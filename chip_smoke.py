@@ -47,7 +47,7 @@ from ginkgo_tpu_torch.stop import Iteration, ResidualNorm
 from ginkgo_tpu_torch.utils.generators import (permute_locally,
                                                stencil_3d)
 
-# H100 SXM data sheet (the on-chip-measurement guide's table): memory rate
+# H100 SXM data sheet: memory rate
 # and the non-tensor-core f32 rate the kernels' multiply-adds run at
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
