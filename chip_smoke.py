@@ -10,18 +10,31 @@ exits non-zero:
 
 1. card: name and power limit (``nvidia-smi``); exits 2 without CUDA;
 2. build: compiles every hand-written kernel of ``ops/csrc`` with ``nvcc``
-   (one process per source, all started together);
+   (one process per source, all started together) and the port's native
+   C++ host library with ``g++``;
 3. kernel A (banded SpMV) against its plain PyTorch version on the card:
    small random banded matrices with k in {1, 3, 8, 9} in f32, f64 and
    bf16/f16 storage, and the 27-point stencil at nx=160 with k=1, timed
    beside its byte bound, its plain version and cuSPARSE;
 4. kernel B (packed windowed-ELL SpMV), the same on small matrices and on
    the locally permuted 1,048,576-row stencil;
-5. main path, banded: ``Csr.from_data`` of the nx=160 stencil on the card
+5. kernel C (packed exact triangular solve), the same on small random
+   lower and upper factors (f32 and f64 right-hand sides) and on the L
+   factor of the ILU system below, timed beside its byte bound, its plain
+   version and cuSPARSE's triangular solve; four of its block inverses are
+   checked against an f64 inverse, and four more built with TF32 turned
+   on by the caller;
+6. main path, banded: ``Csr.from_data`` of the nx=160 stencil on the card
    (``banded`` layout), Jacobi-CG to the tolerance below, with kernel A's
    launch count and the true residual recomputed independently;
-6. main path, packed: the same on the permuted matrix (``packed`` layout);
-7. small f64 solves on the card agree with the port's CPU run.
+7. main path, packed: the same on the permuted matrix (``packed`` layout);
+8. main path, ILU: the 262,144-row unstructured FEM matrix of the
+   benchmark cases (``packed`` layout), ``Ilu(ParIlu(5))`` with both
+   triangular solves on kernel C, BiCGSTAB to ``ResidualNorm(1e-5)`` with
+   kernels B and C counted, the true residual recomputed, and fewer
+   iterations than BiCGSTAB without a preconditioner;
+9. small solves on the card agree with the port's CPU run: Jacobi-CG and
+   Ic-CG in f64, Ilu-BiCGSTAB in f32 and f64.
 
 The line before the last is a JSON object with every kernel's launches on
 the main path, error against its plain version, time, plain time, bound
@@ -31,6 +44,7 @@ and cuSPARSE time; the last line is ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -39,12 +53,17 @@ import numpy as np
 import torch
 
 import ginkgo_tpu_torch as gtt
-from ginkgo_tpu_torch.ops import _cuda, spmv_banded, spmv_packed
+from ginkgo_tpu_torch import native
+from ginkgo_tpu_torch.benchmark import build_matrix_data
+from ginkgo_tpu_torch.factorization import ParIlu
+from ginkgo_tpu_torch.ops import _cuda, spmv_banded, spmv_packed, tri_packed
 from ginkgo_tpu_torch.ops.spmv import coo_spmv
-from ginkgo_tpu_torch.preconditioner import Jacobi
-from ginkgo_tpu_torch.solver import Cg
+from ginkgo_tpu_torch.preconditioner import Ic, Ilu, Jacobi
+from ginkgo_tpu_torch.solver import Bicgstab, Cg
 from ginkgo_tpu_torch.stop import Iteration, ResidualNorm
+from ginkgo_tpu_torch.ops.tri_inv import batched_lowtri_inverse
 from ginkgo_tpu_torch.utils.generators import (permute_locally,
+                                               random_lower_factor,
                                                stencil_3d)
 
 # H100 SXM data sheet: memory rate
@@ -60,6 +79,9 @@ PACKED_DIMS = (256, 64, 64)          # 1,048,576 rows once permuted
 # the solve to the tolerance it claims
 SOLVE_TOL = 2e-4
 TRUE_RESIDUAL_LIMIT = SOLVE_TOL
+# the ILU path: the repo's unstructured preconditioner case, f32
+ILU_CASE = {"fem": 262144, "offscale": 1.2}
+ILU_TOL = 1e-5
 DEV = torch.device("cuda")
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 1e-5,
        torch.float16: 1e-5}
@@ -282,9 +304,169 @@ def phase_kernel_b(A):
                 bound_ms=bms, bound_by=by, library_ms=lib)
 
 
+# -- kernel C -----------------------------------------------------------------
+# the random unstructured lower factors of the JAX package's packed-trisolve
+# tests: (n, entries per row, reach, seed, off-diagonal scale); n = 1700
+# gives an odd block count
+SMALL_FACTORS = ((1500, 7, 500, 5, 0.05), (1700, 7, 600, 7, 0.04),
+                 (1200, 5, 400, 9, 0.04))
+
+
+def check_tri(arrays, meta, b):
+    x = tri_packed.packed_trisolve_cuda(arrays, meta, b)
+    torch.cuda.synchronize()
+    want = tri_packed.packed_trisolve_reference(arrays, meta, b)
+    assert x.shape == want.shape and x.dtype == b.dtype
+    assert bool(torch.isfinite(x).all())
+    err, _ = rel_err(x, want)
+    if not err <= TOL[torch.float32]:
+        raise AssertionError(f"tri_packed kernel disagrees: rel err "
+                             f"{err:.3e} (b {b.dtype}, shape "
+                             f"{tuple(b.shape)}, meta {dict(meta)})")
+    return err
+
+
+def tri_library_ms(L, b, reps):
+    """cuSPARSE's triangular solve (``torch.triangular_solve`` on the
+    factor as a sparse CSR tensor): the yardstick the port itself never
+    calls.  Returns (ms, x), or (None, the error text) when the installed
+    PyTorch refuses the sparse factor."""
+    nnz = L.nnz
+    S = torch.sparse_csr_tensor(L.row_ptr, L.col_idx[:nnz], L.values[:nnz],
+                                size=L.shape)
+    try:
+        x = torch.triangular_solve(b, S, upper=False).solution
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as exc:
+        return None, f"{type(exc).__name__}: {exc}"
+    return time_ms(lambda: torch.triangular_solve(b, S, upper=False),
+                   reps), x
+
+
+def inverse_check(L, arrays, nb):
+    """Max relative difference of four built block inverses against an
+    f64 ``numpy.linalg.inv`` of the same within-block triangles."""
+    d = L.to_matrix_data()
+    r, c = d.row_idx.astype(np.int64), d.col_idx.astype(np.int64)
+    worst = 0.0
+    for t in sorted({0, 1, nb // 2, nb - 1}):
+        sel = (r // 256 == t) & (c // 256 == t)
+        Lb = np.eye(256)
+        Lb[r[sel] - 256 * t, c[sel] - 256 * t] = d.values[sel]
+        want = np.linalg.inv(Lb)
+        got = arrays["inv"][t].double().cpu().numpy()
+        worst = max(worst, float(np.abs(got - want).max()
+                                 / np.abs(want).max()))
+    if not worst <= 1e-5:
+        raise AssertionError(f"built block inverses differ from the f64 "
+                             f"inverse by {worst:.3e} (relative)")
+    return worst
+
+
+def inverse_check_tf32_on():
+    """The block-inverse build after the caller turned TF32 on: four dense
+    lower blocks (TF32 products would miss the f64 inverse by about 1e-4)
+    must stay within 1e-5 of it, and the caller's setting must survive."""
+    g = np.random.default_rng(0)
+    Lb = np.tril(g.standard_normal((4, 256, 256)) * 0.1, -1)
+    Lb[:, np.arange(256), np.arange(256)] = 2.0 + g.random((4, 256))
+    want = np.linalg.inv(Lb)
+    flags = torch.backends.cuda.matmul
+    prev = flags.fp32_precision
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = batched_lowtri_inverse(torch.from_numpy(Lb).float().to(DEV))
+        got = got.double().cpu().numpy()
+        kept = flags.fp32_precision
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        flags.fp32_precision = prev
+    worst = max(float(np.abs(got[i] - want[i]).max() / np.abs(want[i]).max())
+                for i in range(4))
+    if kept != "tf32" or not worst <= 1e-5:
+        raise AssertionError(f"with TF32 on, built block inverses differ "
+                             f"from the f64 inverse by {worst:.3e} and the "
+                             f"caller's flag reads {kept!r}")
+    return worst
+
+
+def tri_needed_bytes_ops(arrays, n, nb):
+    """Bytes and operations the solve needs at least: the inverse entries
+    on or below the diagonal in rows < n (the rest are exact zeros or rows
+    past the end), the nonzero cross slots (int16 index and f32 value),
+    ``nwv``, b read once and x written once."""
+    rows = np.minimum(256, n - 256 * np.arange(nb))
+    inv_entries = int((rows * (rows + 1) // 2).sum())
+    cross = int((arrays["crossv"] != 0).sum())
+    nbytes = inv_entries * 4 + cross * 6 + nb * 4 + 2 * n * 4
+    return nbytes, 2 * inv_entries + 2 * cross, inv_entries, cross
+
+
+def phase_kernel_c(op, L):
+    worst = {}
+    for n, per, reach, seed, scale in SMALL_FACTORS:
+        d = random_lower_factor(n, per, reach, seed, scale)
+        for lower in (True, False):
+            dd = d if lower else gtt.MatrixData(
+                (n, n), d.col_idx.copy(), d.row_idx.copy(),
+                d.values.copy()).canonical()
+            arrays, meta = tri_packed.plan_packed_trisolve(dd, lower, False,
+                                                           device=DEV)
+            for xdtype in (torch.float32, torch.float64):
+                for k in (1, 3, 8, 9):
+                    b = torch.randn((n, k), dtype=xdtype, device=DEV)
+                    err = check_tri(arrays, meta, b)
+                    worst[str(xdtype)] = max(worst.get(str(xdtype), 0.0),
+                                             err)
+    say("kernel_c_small", max_rel_err=worst)
+
+    arrays, meta_items = op.pk_arrays, op.tri_meta
+    meta = dict(meta_items)
+    n, nb = meta["n"], meta["nb"]
+    b = torch.randn((n, 1), dtype=torch.float32, device=DEV)
+    x = tri_packed.packed_trisolve_cuda(arrays, meta_items, b)
+    want = tri_packed.packed_trisolve_reference(arrays, meta_items, b)
+    err, scale = rel_err(x, want)
+    if not err <= TOL[torch.float32]:
+        raise AssertionError(f"tri_packed kernel disagrees on the ILU "
+                             f"factor: rel err {err:.3e}")
+    ms = time_ms(lambda: tri_packed.packed_trisolve_cuda(
+        arrays, meta_items, b), 20)
+    plain = time_ms(lambda: tri_packed.packed_trisolve_reference(
+        arrays, meta_items, b), 3)
+    lib, ylib = tri_library_ms(L, b, 5)
+    lib_note = (dict(library_rel_err=rel_err(ylib, want)[0]) if lib
+                is not None else dict(library_error=ylib))
+    inv_err = inverse_check(L, arrays, nb)
+    inv_err_tf32 = inverse_check_tf32_on()
+    nbytes, nops, inv_entries, cross = tri_needed_bytes_ops(arrays, n, nb)
+    bms, by = bound(nbytes, nops)
+    say("kernel_c", meta=meta, k=1, ms=ms, plain_ms=plain, library_ms=lib,
+        bound_ms=bms, bound_by=by, bytes=nbytes,
+        inverse_entries=inv_entries, cross_entries=cross,
+        effective_GBps=nbytes / (ms * 1e-3) / 1e9,
+        max_abs_err=err * scale, max_rel_err=err,
+        inverse_rel_err_vs_f64=inv_err,
+        inverse_rel_err_vs_f64_tf32_on=inv_err_tf32, **lib_note)
+    return dict(name="tri_packed", route="cuda",
+                source="ginkgo_tpu_torch/ops/csrc/tri_packed.cu",
+                replaces="ginkgo_tpu/ops/tri_packed.py:178",
+                max_abs_err=err * scale, ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=lib)
+
+
 # -- main path ----------------------------------------------------------------
 COUNTERS = {"dia_spmv": spmv_banded.dia_spmv_cuda,
-            "pell_spmv": spmv_packed.pell_spmv_cuda}
+            "pell_spmv": spmv_packed.pell_spmv_cuda,
+            "tri_packed": tri_packed.packed_trisolve_cuda}
+
+
+def true_rel_residual(A, b, x):
+    """||b - A x|| / ||b|| in f64 on the card, by the plain COO product."""
+    x = x.double()
+    r = b.double() - coo_spmv(A.row_idx, A.col_idx, A.values, x[:, None],
+                              A.shape[0])[:, 0]
+    return float(r.norm() / b.double().norm())
 
 
 def main_path(label, A, strategy, kernel):
@@ -302,11 +484,7 @@ def main_path(label, A, strategy, kernel):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in COUNTERS.items()}
-    # true residual, recomputed in f64 on the card by the plain COO product
-    x = res.x.double()
-    r = b.double() - coo_spmv(A.row_idx, A.col_idx, A.values, x[:, None],
-                              n)[:, 0]
-    true_rel = float(r.norm() / b.double().norm())
+    true_rel = true_rel_residual(A, b, res.x)
     iters = int(res.iterations[0])
     say(f"main_{label}", n=n, nnz=A.nnz, strategy=A.strategy,
         iterations=iters, converged=bool(res.converged.all()),
@@ -321,6 +499,100 @@ def main_path(label, A, strategy, kernel):
         raise AssertionError(f"{label}: true relative residual {true_rel:.3e}"
                              f" > {TRUE_RESIDUAL_LIMIT}")
     return launches
+
+
+def main_ilu(A, M):
+    """Ilu-BiCGSTAB on ``A`` through the port's entry points; returns every
+    kernel's launches during the solve.  BiCGSTAB without a preconditioner
+    runs afterwards, outside the counted window, for its iteration count."""
+    assert A.strategy == "packed", A.strategy
+    n = A.shape[0]
+    b = torch.ones(n, dtype=torch.float32, device=DEV)
+    crit = Iteration(1000) | ResidualNorm(ILU_TOL)
+    torch.cuda.synchronize()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = Bicgstab.solve(A, b, criteria=crit, preconditioner=M)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    true_rel = true_rel_residual(A, b, res.x)
+    iters = int(res.iterations[0])
+    t0 = time.perf_counter()
+    bare = Bicgstab.solve(A, b, criteria=crit)
+    torch.cuda.synchronize()
+    bare_seconds = time.perf_counter() - t0
+    bare_iters = int(bare.iterations[0])
+    say("main_ilu", n=n, nnz=A.nnz, strategy=A.strategy, iterations=iters,
+        converged=bool(res.converged.all()),
+        stagnated=bool(res.stagnated.any()), solve_s=seconds,
+        ms_per_iteration=seconds * 1e3 / max(iters, 1),
+        true_rel_residual=true_rel, launches=launches,
+        unpreconditioned_iterations=bare_iters,
+        unpreconditioned_converged=bool(bare.converged.all()),
+        unpreconditioned_solve_s=bare_seconds,
+        unpreconditioned_true_rel_residual=true_rel_residual(A, b, bare.x))
+    if launches["pell_spmv"] <= 0:
+        raise AssertionError("ILU path: the solve never launched pell_spmv")
+    if launches["tri_packed"] < 4 * iters or iters <= 0:
+        raise AssertionError(f"ILU path: {launches['tri_packed']} tri_packed"
+                             f" launches for {iters} iterations (two ILU "
+                             f"applies of two solves each per iteration)")
+    if not bool(res.converged.all()):
+        raise AssertionError("ILU path: BiCGSTAB did not converge")
+    if not (np.isfinite(true_rel) and true_rel <= ILU_TOL):
+        raise AssertionError(f"ILU path: true relative residual "
+                             f"{true_rel:.3e} > {ILU_TOL}")
+    if not iters < bare_iters:
+        raise AssertionError(f"ILU path: {iters} iterations with ILU, "
+                             f"{bare_iters} without")
+    return launches
+
+
+def small_ilu_solves_match_cpu():
+    """Ilu/Ic-preconditioned solves on the card against the same solves
+    on the host."""
+    fem = build_matrix_data({"fem": 4096, "offscale": 1.2})
+    b = np.random.default_rng(2).standard_normal((4096, 3))
+    cases = (
+        # f32 ParILU factors on both devices (index_add_ sums in another
+        # order on the card), both solves on kernel C / its plain version
+        ("ilu_f32", fem, np.float32, Bicgstab, "packed",
+         lambda: Ilu(factorization=ParIlu(5)), 1e-5),
+        ("ic_f64", stencil_3d(12, points=27), np.float64, Cg,
+         "automatical", Ic, 1e-10),
+        ("ilu_f64", fem, np.float64, Bicgstab, "automatical", Ilu, 1e-10))
+    for label, data, dtype, solver, strategy, precond, tol in cases:
+        rhs = b[:data.shape[0]].astype(dtype)
+        out = []
+        for dev in (DEV, torch.device("cpu")):
+            A = gtt.Csr.from_data(data, dtype=dtype, strategy=strategy,
+                                  device=dev)
+            M = precond().generate(A)
+            res = solver.solve(A, torch.from_numpy(rhs).to(dev),
+                               criteria=Iteration(300) | ResidualNorm(tol),
+                               preconditioner=M)
+            out.append(((M.l_solver.algorithm, M.u_solver.algorithm),
+                        res.iterations.cpu(), res.converged.cpu(),
+                        res.x.cpu()))
+        (ag, ig, cg, xg), (ac, ic, cc, xc) = out
+        assert bool(cg.all()) and bool(cc.all()), (label, cg, cc)
+        if label == "ilu_f32":
+            assert ag == ac == ("exact_packed", "exact_packed"), (ag, ac)
+            assert int((ig - ic).abs().max()) <= 1, (ig, ic)
+            err, _ = rel_err(xg, xc)
+            assert err <= 1e-4, (label, err)
+        else:
+            # the card takes #levels jacobi sweeps where the off part
+            # plans to a fast layout; the host always the level solve
+            if label == "ic_f64":
+                assert ag == ac == ("exact", "exact"), (ag, ac)
+            assert torch.equal(ig, ic), (label, ig, ic)
+            torch.testing.assert_close(xg, xc, rtol=1e-9, atol=1e-9)
+        say("small_solve", case=label, card_algorithms=ag,
+            host_algorithms=ac, card_iterations=ig.tolist(),
+            host_iterations=ic.tolist())
 
 
 def small_solves_match_cpu():
@@ -366,6 +638,13 @@ def main() -> int:
               for name, rep in reports.items()}
     say("build", seconds=time.perf_counter() - t0, registers=regs,
         lines_with_spills=spills)
+    t0 = time.perf_counter()
+    prebuilt = os.path.exists(native._LIBPATH)
+    if native.lib() is None:
+        raise AssertionError("the port's native C++ library did not build "
+                             "(ParILU's pair lists need it at this size)")
+    say("build_native", seconds=time.perf_counter() - t0,
+        library=native._LIBPATH, found_built=prebuilt)
     say("stream", copy_GBps=stream_gbps())
 
     t0 = time.perf_counter()
@@ -386,13 +665,38 @@ def main() -> int:
         tail=Ap.tail_rows is not None)
     assert Ab.strategy == "banded" and Ap.strategy == "packed"
 
-    kernels = [phase_kernel_a(Ab), phase_kernel_b(Ap)]
+    t0 = time.perf_counter()
+    Ai = gtt.Csr.from_data(build_matrix_data(ILU_CASE), dtype=np.float32)
+    torch.cuda.synchronize()
+    say("setup_ilu", case=ILU_CASE, seconds=time.perf_counter() - t0,
+        strategy=Ai.strategy, n=Ai.shape[0], nnz=Ai.nnz,
+        pell_meta=dict(Ai.pell_meta or ()), tail=Ai.tail_rows is not None)
+    t0 = time.perf_counter()
+    F = ParIlu(iterations=5).generate(Ai)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    M = Ilu(factorization=F).generate(Ai)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    say("ilu_generate", seconds=t2 - t0, factorization_s=t1 - t0,
+        trisolve_generate_s=t2 - t1, l_nnz=F.l_factor.nnz,
+        u_nnz=F.u_factor.nnz, l_algorithm=M.l_solver.algorithm,
+        u_algorithm=M.u_solver.algorithm,
+        l_meta=dict(M.l_solver.tri_meta or ()),
+        u_meta=dict(M.u_solver.tri_meta or ()))
+    assert Ai.strategy == "packed"
+    assert M.l_solver.algorithm == M.u_solver.algorithm == "exact_packed"
 
-    launches = main_path("banded", Ab, "banded", "dia_spmv")
-    more = main_path("packed", Ap, "packed", "pell_spmv")
+    kernels = [phase_kernel_a(Ab), phase_kernel_b(Ap),
+               phase_kernel_c(M.l_solver, F.l_factor)]
+
+    runs = [main_path("banded", Ab, "banded", "dia_spmv"),
+            main_path("packed", Ap, "packed", "pell_spmv"),
+            main_ilu(Ai, M)]
     for k in kernels:
-        k["launches"] = launches[k["name"]] + more[k["name"]]
+        k["launches"] = sum(run[k["name"]] for run in runs)
     small_solves_match_cpu()
+    small_ilu_solves_match_cpu()
 
     print(json.dumps({"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces",

@@ -91,13 +91,23 @@ class MatrixData:
 
     def sum_duplicates(self) -> "MatrixData":
         """Combine duplicate (row, col) entries — ``sum_duplicates`` analog.
-        The numpy path of ``ginkgo_tpu`` (canonical row-major order); the
-        C++ native canonicalizer gives the same result and is not ported
-        yet.  Sorted duplicate runs are reduced with ``np.add.reduceat`` —
-        no second sort (np.unique) and no buffered-ufunc ``np.add.at``
-        scatter."""
+        Large f64/c128 inputs take the C++ native kernel; everything else
+        the numpy path (both produce canonical row-major order).  Sorted
+        duplicate runs are reduced with ``np.add.reduceat`` — no second
+        sort (np.unique) and no buffered-ufunc ``np.add.at`` scatter."""
         if self.nnz == 0:
             return self.sort_row_major()
+        if (self.nnz >= 1 << 16
+                and self.values.dtype in (np.float64, np.complex128)):
+            from ..native import coo_canonicalize_native
+            out = coo_canonicalize_native(self.row_idx, self.col_idx,
+                                          self.values)
+            if out is not None:
+                r, c, v = out
+                return MatrixData(self.shape,
+                                  r.astype(self.row_idx.dtype),
+                                  c.astype(self.col_idx.dtype),
+                                  v.astype(self.values.dtype))
         d = self.sort_row_major()
         keys = d._keys()
         first = np.empty(keys.shape[0], bool)

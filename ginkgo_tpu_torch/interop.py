@@ -4,7 +4,8 @@ For this system the "weights" are the planned operator: ``csr_from_arrays``
 takes the arrays and static fields of a ``Csr`` planned elsewhere (for
 instance ``ginkgo_tpu``'s, read out as numpy) and returns the port's
 ``Csr`` holding the same layout, without planning again.  Both packages
-then run on identical operators.
+then run on identical operators.  ``factorization_from_arrays`` does the
+same for the two factors of an incomplete factorization.
 """
 
 from __future__ import annotations
@@ -47,3 +48,16 @@ def csr_from_arrays(arrays: dict, static: dict, device=None,
     for name, dtype in LAYOUT_INDEX_ARRAYS.items():
         put(name, dtype)
     return Csr(**kw)
+
+
+def factorization_from_arrays(l_factor, u_factor, symmetric=False,
+                              device=None, index_dtype=torch.int32):
+    """A factorization computed elsewhere, without factorizing again:
+    ``l_factor`` and ``u_factor`` are each the ``(arrays, static)`` of one
+    factor's Csr, as ``csr_from_arrays`` takes them; ``symmetric`` marks an
+    IC pair (U = Lᴴ).  ``Ilu(factorization=F)`` / ``Ic(factorization=F)``
+    accept the result as they accept a generated one."""
+    from .factorization.container import Factorization
+    L = csr_from_arrays(*l_factor, device=device, index_dtype=index_dtype)
+    U = csr_from_arrays(*u_factor, device=device, index_dtype=index_dtype)
+    return Factorization(l_factor=L, u_factor=U, symmetric=symmetric)

@@ -7,4 +7,6 @@ compiled only when a CUDA tensor first reaches their wrapper.
 from . import spmv  # noqa: F401  (registers reference kernels)
 from . import spmv_banded  # noqa: F401  (registers the banded tiers)
 from . import spmv_packed  # noqa: F401  (registers the packed tiers)
+from . import tri_banded  # noqa: F401  (registers the banded trisolve)
+from . import tri_packed  # noqa: F401  (registers the packed trisolve tiers)
 from .registry import lookup, register, use_tier, current_tier  # noqa: F401

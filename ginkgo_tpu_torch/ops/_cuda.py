@@ -34,6 +34,11 @@ SIGNATURES = {
     "pell_spmv": ("pell_spmv_launch",
                   [_I, _I, _P, _P, _P, _P, _I, _L, _L, _P, _L, _P, _L, _I,
                    _P]),
+    # xcode, inv, crossi, crossv, nwv, nb, P, Wv, n, flip, b, ldb, x, ldx,
+    # k, stream
+    "tri_packed": ("tri_packed_launch",
+                   [_I, _P, _P, _P, _P, _I, _I, _I, _L, _I, _P, _L, _P, _L,
+                    _I, _P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

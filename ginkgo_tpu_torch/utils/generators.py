@@ -3,7 +3,8 @@
 Analogs of Ginkgo's ``benchmark/utils/stencil_matrix.hpp`` (5/7/9/27-point
 stencils) and ``core/utils/matrix_utils.hpp`` / ``gko::test::generate_random_matrix``.
 All host-side numpy (assembly-time work); a copy of
-``ginkgo_tpu/utils/generators.py`` plus ``permute_locally``.
+``ginkgo_tpu/utils/generators.py`` plus ``random_lower_factor`` and
+``permute_locally``.
 """
 
 from __future__ import annotations
@@ -125,6 +126,25 @@ def make_spd(data: MatrixData, shift: float = 1.0) -> MatrixData:
                       np.concatenate([sym.values,
                                       (shift * rowsum + shift).astype(sym.values.dtype)])
                       ).canonical()
+
+
+def random_lower_factor(n: int, per: int, reach: int, seed: int,
+                        scale: float = 0.05,
+                        dtype=np.float32) -> MatrixData:
+    """An unstructured lower factor (``numpy.random.default_rng(seed)``):
+    ``per`` entries per row at distances below ``reach`` (more than 64
+    offsets, so not banded), off-diagonal values of size ``scale``, a
+    dominant diagonal in [2, 3)."""
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(n), per)
+    c = r - rng.integers(1, reach, r.size)
+    keep = c >= 0
+    key = np.unique(r[keep] * n + c[keep])
+    r, c = key // n, key % n
+    vals = np.concatenate([rng.standard_normal(r.size) * scale,
+                           2.0 + rng.random(n)]).astype(dtype)
+    return MatrixData((n, n), np.concatenate([r, np.arange(n)]),
+                      np.concatenate([c, np.arange(n)]), vals).canonical()
 
 
 def permute_locally(data: MatrixData, run: int = 256,

@@ -7,16 +7,22 @@ repository's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
 import ginkgo_tpu_torch as gtt
-from ginkgo_tpu_torch.ops import registry, spmv_banded, spmv_packed
-from ginkgo_tpu_torch.preconditioner import Jacobi
-from ginkgo_tpu_torch.solver import Cg
+from ginkgo_tpu_torch.benchmark import build_matrix_data
+from ginkgo_tpu_torch.factorization import ParIlu
+from ginkgo_tpu_torch.ops import (registry, spmv_banded, spmv_packed,
+                                  tri_inv, tri_packed)
+from ginkgo_tpu_torch.preconditioner import Ilu, Jacobi
+from ginkgo_tpu_torch.solver import Bicgstab, Cg
 from ginkgo_tpu_torch.stop import Iteration, ResidualNorm
-from ginkgo_tpu_torch.utils.generators import permute_locally, stencil_3d
+from ginkgo_tpu_torch.utils.generators import (permute_locally,
+                                               random_lower_factor, stencil_3d)
 
 pytestmark = pytest.mark.cuda
 
@@ -133,3 +139,106 @@ def test_cg_on_card_matches_host(dev, make):
     assert torch.equal(rg.iterations.cpu(), rc.iterations)
     assert torch.equal(rg.converged.cpu(), rc.converged)
     torch.testing.assert_close(rg.x.cpu(), rc.x, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("bdtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("k", [1, 3, 8, 9])
+@pytest.mark.parametrize("lower", [True, False], ids=["lower", "upper"])
+def test_tri_kernel_matches_plain(dev, lower, k, bdtype):
+    d = random_lower_factor(1700, 7, 600, 7, scale=0.04)   # nb = 7: odd
+    if not lower:
+        d = gtt.MatrixData(d.shape, d.col_idx.copy(), d.row_idx.copy(),
+                           d.values.copy()).canonical()
+    arrays, meta = tri_packed.plan_packed_trisolve(d, lower, False,
+                                                   device=dev)
+    assert all(a.device.type == "cuda" for a in arrays.values())
+    b = torch.randn((1700, k), dtype=bdtype, device=dev)
+    before = tri_packed.packed_trisolve_cuda.launches
+    x = tri_packed.packed_trisolve_cuda(arrays, meta, b)
+    torch.cuda.synchronize()
+    assert tri_packed.packed_trisolve_cuda.launches - before == 1
+    assert x.dtype == bdtype
+    want = tri_packed.packed_trisolve_reference(arrays, meta, b)
+    assert _rel_err(x, want) <= 1e-5
+
+
+def _tf32_on(how):
+    if how == "allow_tf32":
+        torch.backends.cuda.matmul.allow_tf32 = True
+    elif how == "float32_matmul_precision":
+        torch.set_float32_matmul_precision("high")
+    else:
+        torch.backends.cuda.matmul.fp32_precision = "tf32"
+
+
+@pytest.fixture
+def keep_matmul_flags():
+    legacy = torch.get_float32_matmul_precision()
+    cuda = torch.backends.cuda.matmul.fp32_precision
+    mkldnn = torch.backends.mkldnn.matmul.fp32_precision
+    yield
+    torch.set_float32_matmul_precision(legacy)
+    torch.backends.cuda.matmul.fp32_precision = cuda
+    torch.backends.mkldnn.matmul.fp32_precision = mkldnn
+
+
+@pytest.mark.parametrize("how", ["allow_tf32", "float32_matmul_precision",
+                                 "fp32_precision"])
+def test_inverses_stay_full_f32_under_tf32(dev, how, keep_matmul_flags,
+                                           monkeypatch):
+    """A caller that turned TF32 on still gets full-f32 block inverses,
+    and keeps its setting."""
+    g = np.random.default_rng(0)
+    Lb = np.tril(g.standard_normal((4, 256, 256)) * 0.1, -1)
+    Lb[:, np.arange(256), np.arange(256)] = 2.0 + g.random((4, 256))
+    want = np.linalg.inv(Lb)
+    Lt = torch.from_numpy(Lb).float().to(dev)
+
+    def err():
+        got = tri_inv.batched_lowtri_inverse(Lt).double().cpu().numpy()
+        return max(float(np.abs(got[i] - want[i]).max()
+                         / np.abs(want[i]).max()) for i in range(4))
+
+    _tf32_on(how)
+    flag = torch.backends.cuda.matmul.fp32_precision
+    assert err() <= 1e-5
+    assert torch.backends.cuda.matmul.fp32_precision == flag
+    # the same products without the guard lose about 1e-4: TF32 was on
+    monkeypatch.setattr(tri_inv, "_full_f32_matmul", contextlib.nullcontext)
+    assert err() > 1e-5
+
+
+def test_tri_wrapper_raises_instead_of_falling_back(dev):
+    d = random_lower_factor(1200, 5, 400, 9, scale=0.04)
+    arrays, meta = tri_packed.plan_packed_trisolve(d, True, False,
+                                                   device=dev)
+    b = torch.randn((1200, 2), dtype=torch.float32, device=dev)
+    with pytest.raises(TypeError):
+        tri_packed.packed_trisolve_cuda(arrays, meta, b.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tri_packed.packed_trisolve_cuda(arrays, meta, b.t().contiguous().t())
+    with pytest.raises(ValueError, match="one device"):
+        tri_packed.packed_trisolve_cuda(
+            {name: a.cpu() for name, a in arrays.items()}, meta, b)
+    assert registry.lookup("packed_trisolve", dev) is \
+        tri_packed.packed_trisolve_cuda
+
+
+def test_ilu_bicgstab_on_card_matches_host(dev):
+    data = build_matrix_data({"fem": 4096, "offscale": 1.2})
+    b = np.random.default_rng(2).standard_normal((4096, 3)).astype(
+        np.float32)
+    crit = Iteration(300) | ResidualNorm(1e-5)
+    out = []
+    for device in (dev, torch.device("cpu")):
+        A = gtt.Csr.from_data(data, dtype=np.float32, strategy="packed",
+                              device=device)
+        M = Ilu(factorization=ParIlu(5)).generate(A)
+        assert M.l_solver.algorithm == M.u_solver.algorithm == \
+            "exact_packed"
+        out.append(Bicgstab.solve(A, torch.from_numpy(b).to(device),
+                                  criteria=crit, preconditioner=M))
+    rg, rc = out
+    assert bool(rg.converged.all()) and bool(rc.converged.all())
+    assert int((rg.iterations.cpu() - rc.iterations).abs().max()) <= 1
+    assert _rel_err(rg.x.cpu(), rc.x) <= 1e-4

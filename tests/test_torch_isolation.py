@@ -23,7 +23,8 @@ REPO = PKG.parent
 def test_import_loads_no_jax():
     code = ("import sys; import ginkgo_tpu_torch, ginkgo_tpu_torch.solver, "
             "ginkgo_tpu_torch.preconditioner, ginkgo_tpu_torch.interop, "
-            "ginkgo_tpu_torch.ops._cuda; "
+            "ginkgo_tpu_torch.ops._cuda, ginkgo_tpu_torch.factorization, "
+            "ginkgo_tpu_torch.native, ginkgo_tpu_torch.benchmark; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ginkgo_tpu' "
             "or m.startswith('ginkgo_tpu.')]; print(bad); "
