@@ -33,16 +33,34 @@ exits non-zero:
    triangular solves on kernel C, BiCGSTAB to ``ResidualNorm(1e-5)`` with
    kernels B and C counted, the true residual recomputed, and fewer
    iterations than BiCGSTAB without a preconditioner;
-9. small solves on the card agree with the port's CPU run: Jacobi-CG and
-   Ic-CG in f64, Ilu-BiCGSTAB in f32 and f64.
+9. ParILUT generate: ``ParIlut(iterations=5)`` (``auto``, f32) on the ILU
+   system's matrix takes the packed device loop, with exactly 42 launches
+   of kernel D (23 on the product plan, 19 on the denominator plan), the
+   stagetimer's host/transfer/device split, and both triangular solves of
+   ``Ilu(ParIlut)`` on kernel C;
+10. main path, ILUT: Ilu(ParIlut)-BiCGSTAB to ``ResidualNorm(1e-5)`` as in
+   8, in fewer iterations than without a preconditioner;
+11. the same generate with the one-hot scatter (``_DOT_MODE = "onehot"``):
+   42 launches of kernel E and factors that agree with 9's;
+12. kernels D and E (pair contraction) at the product and denominator
+   plans of that generate, against their plain version and an f64
+   raw-triple oracle, timed beside their byte bound, their plain version
+   and the gather + ``index_add_`` of the raw triples;
+13. small solves on the card agree with the port's CPU run: Jacobi-CG and
+   Ic-CG in f64, Ilu-BiCGSTAB in f32 and f64, packed ParILUT and ParICT
+   factors in f64, and Ilu(ParIlut)-BiCGSTAB in f32.
 
 The line before the last is a JSON object with every kernel's launches on
-the main path, error against its plain version, time, plain time, bound
-and cuSPARSE time; the last line is ``{"ok": true, "device": ...}``.
+the main paths, error against its plain version, time, plain time, bound
+and library time (cuSPARSE for A-C; for D and E, whose contraction no
+single PyTorch call computes, the gather + ``index_add_`` of the raw
+pair triples, on the product plan); the last line is
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -55,16 +73,20 @@ import torch
 import ginkgo_tpu_torch as gtt
 from ginkgo_tpu_torch import native
 from ginkgo_tpu_torch.benchmark import build_matrix_data
-from ginkgo_tpu_torch.factorization import ParIlu
-from ginkgo_tpu_torch.ops import _cuda, spmv_banded, spmv_packed, tri_packed
+from ginkgo_tpu_torch.factorization import (ParIct, ParIlu, ParIlut,
+                                            par_ilut_packed)
+from ginkgo_tpu_torch.ops import (_cuda, pair_contract, spmv_banded,
+                                  spmv_packed, tri_packed)
 from ginkgo_tpu_torch.ops.spmv import coo_spmv
 from ginkgo_tpu_torch.preconditioner import Ic, Ilu, Jacobi
 from ginkgo_tpu_torch.solver import Bicgstab, Cg
 from ginkgo_tpu_torch.stop import Iteration, ResidualNorm
 from ginkgo_tpu_torch.ops.tri_inv import batched_lowtri_inverse
+from ginkgo_tpu_torch.utils import stagetimer
 from ginkgo_tpu_torch.utils.generators import (permute_locally,
+                                               random_banded,
                                                random_lower_factor,
-                                               stencil_3d)
+                                               stencil_3d, symmetric_part)
 
 # H100 SXM data sheet: memory rate
 # and the non-tensor-core f32 rate the kernels' multiply-adds run at
@@ -82,6 +104,21 @@ TRUE_RESIDUAL_LIMIT = SOLVE_TOL
 # the ILU path: the repo's unstructured preconditioner case, f32
 ILU_CASE = {"fem": 262144, "offscale": 1.2}
 ILU_TOL = 1e-5
+# the ParILUT path: the JAX package's benchmark preset "parilut"
+# (Ilu(factorization=ParIlut(iterations=5))); one generate with two sweeps
+# an iteration contracts 23 times on the product plan and 19 times on the
+# denominator plan (par_ilut_packed._run_packed)
+ILUT_ITERATIONS = 5
+ILUT_LAUNCHES = {"prod": 23, "den": 19}
+# pair contraction against its plain version and the f64 oracle, relative
+# to max |y|: f32 sums in another order, and kernel D's cumsum difference
+# loses digits to cancellation (the JAX package's tolerances)
+PAIR_TOL = {"pair_contract_cumsum": 1e-5, "pair_contract_onehot": 2e-5}
+# kernel E's ParILUT factors against kernel D's on their shared slots,
+# relative to max |value|: the threshold select reacts to f32 sums in
+# another order (3.7e-3 on L and 4.5e-3 on U in three runs on the H100),
+# far below the O(1) of values gone wrong
+ONEHOT_FACTOR_TOL = 2e-2
 DEV = torch.device("cuda")
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 1e-5,
        torch.float16: 1e-5}
@@ -458,7 +495,20 @@ def phase_kernel_c(op, L):
 # -- main path ----------------------------------------------------------------
 COUNTERS = {"dia_spmv": spmv_banded.dia_spmv_cuda,
             "pell_spmv": spmv_packed.pell_spmv_cuda,
-            "tri_packed": tri_packed.packed_trisolve_cuda}
+            "tri_packed": tri_packed.packed_trisolve_cuda,
+            "pair_contract_cumsum": pair_contract.pair_contract_cumsum_cuda,
+            "pair_contract_onehot": pair_contract.pair_contract_onehot_cuda}
+
+
+def reset_counters():
+    torch.cuda.synchronize()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counters():
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
 def true_rel_residual(A, b, x):
@@ -475,15 +525,13 @@ def main_path(label, A, strategy, kernel):
     assert A.strategy == strategy, (label, A.strategy)
     n = A.shape[0]
     b = torch.ones(n, dtype=torch.float32, device=DEV)
-    torch.cuda.synchronize()
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    reset_counters()
     t0 = time.perf_counter()
     res = Cg.solve(A, b, criteria=Iteration(2000) | ResidualNorm(SOLVE_TOL),
                    preconditioner=Jacobi())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    launches = read_counters()
     true_rel = true_rel_residual(A, b, res.x)
     iters = int(res.iterations[0])
     say(f"main_{label}", n=n, nnz=A.nnz, strategy=A.strategy,
@@ -501,53 +549,345 @@ def main_path(label, A, strategy, kernel):
     return launches
 
 
-def main_ilu(A, M):
-    """Ilu-BiCGSTAB on ``A`` through the port's entry points; returns every
-    kernel's launches during the solve.  BiCGSTAB without a preconditioner
-    runs afterwards, outside the counted window, for its iteration count."""
-    assert A.strategy == "packed", A.strategy
-    n = A.shape[0]
-    b = torch.ones(n, dtype=torch.float32, device=DEV)
-    crit = Iteration(1000) | ResidualNorm(ILU_TOL)
-    torch.cuda.synchronize()
-    for fn in COUNTERS.values():
-        fn.launches = 0
+def ilu_solve(A, M):
+    """BiCGSTAB with ``M`` on ``A`` to ``ILU_TOL``, b = ones, through the
+    port's entry points; the kernel counts are zeroed just before the
+    solve and read just after.  Returns (result, seconds, launches, true
+    relative residual)."""
+    b = torch.ones(A.shape[0], dtype=torch.float32, device=DEV)
+    reset_counters()
     t0 = time.perf_counter()
-    res = Bicgstab.solve(A, b, criteria=crit, preconditioner=M)
+    res = Bicgstab.solve(A, b, criteria=Iteration(1000) | ResidualNorm(ILU_TOL),
+                         preconditioner=M)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in COUNTERS.items()}
-    true_rel = true_rel_residual(A, b, res.x)
-    iters = int(res.iterations[0])
+    launches = read_counters()
+    return res, seconds, launches, true_rel_residual(A, b, res.x)
+
+
+def ilu_breakdown(A, M):
+    """Outside the counted window: the seconds of a second, warm solve,
+    and one kernel-C launch on each factor (CUDA events), for the split of
+    an iteration."""
+    b = torch.ones(A.shape[0], dtype=torch.float32, device=DEV)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    bare = Bicgstab.solve(A, b, criteria=crit)
+    Bicgstab.solve(A, b, criteria=Iteration(1000) | ResidualNorm(ILU_TOL),
+                   preconditioner=M)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    x = b[:, None]
+    c_ms = {name: time_ms(lambda op=op: tri_packed.packed_trisolve_cuda(
+        op.pk_arrays, op.tri_meta, x), 10)
+        for name, op in (("l", M.l_solver), ("u", M.u_solver))}
+    return dict(warm_solve_s=warm, kernel_c_ms=c_ms)
+
+
+def check_ilu_solve(label, res, launches, true_rel, bare_iters):
+    iters = int(res.iterations[0])
+    if launches["pell_spmv"] <= 0:
+        raise AssertionError(f"{label}: the solve never launched pell_spmv")
+    if launches["tri_packed"] < 4 * iters or iters <= 0:
+        raise AssertionError(f"{label}: {launches['tri_packed']} tri_packed"
+                             f" launches for {iters} iterations (two ILU "
+                             f"applies of two solves each per iteration)")
+    if not bool(res.converged.all()):
+        raise AssertionError(f"{label}: BiCGSTAB did not converge")
+    if not (np.isfinite(true_rel) and true_rel <= ILU_TOL):
+        raise AssertionError(f"{label}: true relative residual "
+                             f"{true_rel:.3e} > {ILU_TOL}")
+    if not iters < bare_iters:
+        raise AssertionError(f"{label}: {iters} iterations with the "
+                             f"preconditioner, {bare_iters} without")
+
+
+def main_ilu(A, M):
+    """Ilu-BiCGSTAB on ``A``; returns every kernel's launches during the
+    solve, its iterations and those of BiCGSTAB without a preconditioner,
+    which runs afterwards, outside the counted window."""
+    assert A.strategy == "packed", A.strategy
+    res, seconds, launches, true_rel = ilu_solve(A, M)
+    iters = int(res.iterations[0])
+    b = torch.ones(A.shape[0], dtype=torch.float32, device=DEV)
+    t0 = time.perf_counter()
+    bare = Bicgstab.solve(A, b, criteria=Iteration(1000)
+                          | ResidualNorm(ILU_TOL))
     torch.cuda.synchronize()
     bare_seconds = time.perf_counter() - t0
     bare_iters = int(bare.iterations[0])
-    say("main_ilu", n=n, nnz=A.nnz, strategy=A.strategy, iterations=iters,
-        converged=bool(res.converged.all()),
+    say("main_ilu", n=A.shape[0], nnz=A.nnz, strategy=A.strategy,
+        iterations=iters, converged=bool(res.converged.all()),
         stagnated=bool(res.stagnated.any()), solve_s=seconds,
         ms_per_iteration=seconds * 1e3 / max(iters, 1),
         true_rel_residual=true_rel, launches=launches,
         unpreconditioned_iterations=bare_iters,
         unpreconditioned_converged=bool(bare.converged.all()),
         unpreconditioned_solve_s=bare_seconds,
-        unpreconditioned_true_rel_residual=true_rel_residual(A, b, bare.x))
-    if launches["pell_spmv"] <= 0:
-        raise AssertionError("ILU path: the solve never launched pell_spmv")
-    if launches["tri_packed"] < 4 * iters or iters <= 0:
-        raise AssertionError(f"ILU path: {launches['tri_packed']} tri_packed"
-                             f" launches for {iters} iterations (two ILU "
-                             f"applies of two solves each per iteration)")
-    if not bool(res.converged.all()):
-        raise AssertionError("ILU path: BiCGSTAB did not converge")
-    if not (np.isfinite(true_rel) and true_rel <= ILU_TOL):
-        raise AssertionError(f"ILU path: true relative residual "
-                             f"{true_rel:.3e} > {ILU_TOL}")
-    if not iters < bare_iters:
-        raise AssertionError(f"ILU path: {iters} iterations with ILU, "
-                             f"{bare_iters} without")
+        unpreconditioned_true_rel_residual=true_rel_residual(A, b, bare.x),
+        **ilu_breakdown(A, M))
+    check_ilu_solve("ILU path", res, launches, true_rel, bare_iters)
+    return launches, iters, bare_iters
+
+
+def main_ilut(A, M, parilu_iters, bare_iters):
+    """Ilu(ParIlut)-BiCGSTAB on ``A``, held to what ``main_ilu`` holds."""
+    res, seconds, launches, true_rel = ilu_solve(A, M)
+    iters = int(res.iterations[0])
+    say("main_ilut", n=A.shape[0], iterations=iters,
+        converged=bool(res.converged.all()),
+        stagnated=bool(res.stagnated.any()), solve_s=seconds,
+        ms_per_iteration=seconds * 1e3 / max(iters, 1),
+        true_rel_residual=true_rel, launches=launches,
+        parilu_iterations=parilu_iters,
+        unpreconditioned_iterations=bare_iters, **ilu_breakdown(A, M))
+    check_ilu_solve("ILUT path", res, launches, true_rel, bare_iters)
     return launches
+
+
+# -- the ParILUT path -----------------------------------------------------------
+def _no_planning(*args, **kw):
+    raise AssertionError("the packed ParILUT plan cache missed: the kernel "
+                         "phases would plan again")
+
+
+def ilut_plan(A):
+    """The kernel-tier packed ParILUT plan of ``A``, served by the
+    single-slot plan cache that the generate filled."""
+    d = A.to_matrix_data().canonical()
+    return par_ilut_packed._cached_plan(
+        d, "ilut", 3, ParIlut().fill_in_limit, _no_planning, device=DEV)
+
+
+@contextlib.contextmanager
+def plan_tally():
+    """Within the block, the plan meta of every pair-contraction kernel
+    launch, seen from outside the wrappers (whose counts stay the ones
+    read); ``by_plan`` splits them by plan."""
+    metas = []
+    real = pair_contract._launch
+
+    def seen(kernel, mode, a, b, arrs, meta_items):
+        metas.append(meta_items)
+        return real(kernel, mode, a, b, arrs, meta_items)
+
+    pair_contract._launch = seen
+    try:
+        yield metas
+    finally:
+        pair_contract._launch = real
+
+
+def by_plan(metas, plan):
+    """Launches on each of ``plan``'s two contraction plans: the generate
+    hands the kernels the plan's own meta object."""
+    return {name: sum(m is plan[name]["kernel"]["meta"] for m in metas)
+            for name in ("prod", "den")}
+
+
+def ilut_generate(A):
+    """``Ilu(factorization=ParIlut(iterations=5))`` on the card, the
+    factorization counted as a main path of its own: kernel D's launches
+    with their split by plan, and the stage split of the generate."""
+    reset_counters()
+    t0 = time.perf_counter()
+    with stagetimer.collect() as st, plan_tally() as metas:
+        F = ParIlut(iterations=ILUT_ITERATIONS).generate(A)
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = read_counters()
+    plan = ilut_plan(A)
+    split = by_plan(metas, plan)
+    M = Ilu(factorization=F).generate(A)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    metas = {name: {**dict(plan[name]["kernel"]["meta"]),
+                    "fill": plan[name]["kernel"]["fill"],
+                    "tail": int(len(plan[name]["kernel"]["tail"][0])),
+                    "pairs": int(len(plan[name]["raw"][0])),
+                    "live_vregs": int(plan[name]["kernel"]["nv"].sum())}
+             for name in ("prod", "den")}
+    transfer = st.stages.get("transfer", 0.0)
+    device = st.stages.get("device", 0.0)
+    say("ilut_generate", seconds=t2 - t0, factorization_s=t1 - t0,
+        host_s=t1 - t0 - transfer - device, transfer_s=transfer,
+        device_s=device, trisolve_generate_s=t2 - t1, nl=plan["nl"],
+        nu=plan["nu"], plans=metas, l_nnz=F.l_factor.nnz,
+        u_nnz=F.u_factor.nnz, l_algorithm=M.l_solver.algorithm,
+        u_algorithm=M.u_solver.algorithm,
+        l_meta=dict(M.l_solver.tri_meta or ()),
+        u_meta=dict(M.u_solver.tri_meta or ()), launches=launches,
+        kernel_d_by_plan=split, route=F.route)
+    if F.route != "packed":
+        raise AssertionError(f"ParILUT generate took the {F.route} route")
+    if split != ILUT_LAUNCHES or launches["pair_contract_cumsum"] != 42:
+        raise AssertionError(f"ParILUT generate: kernel D launches {split} "
+                             f"(total {launches['pair_contract_cumsum']}); "
+                             f"the packed route takes {ILUT_LAUNCHES}")
+    if not (M.l_solver.algorithm == M.u_solver.algorithm == "exact_packed"):
+        raise AssertionError(f"ParILUT factors plan to "
+                             f"{M.l_solver.algorithm}/{M.u_solver.algorithm}")
+    for f in (F.l_factor, F.u_factor):
+        if not bool(torch.isfinite(f.values[:f.nnz]).all()):
+            raise AssertionError("ParILUT factors hold non-finite values")
+    return F, M, plan, launches
+
+
+def _pattern_keys(op):
+    d = op.to_matrix_data()
+    return d.row_idx.astype(np.int64) * d.shape[1] + d.col_idx, d.values
+
+
+def ilut_generate_onehot(A, F_ref, plan):
+    """The same generate with the one-hot scatter (kernel E), counted as a
+    main path of its own; its factors against those of kernel D's run: the
+    two sum in other orders, so the threshold select may keep a few other
+    slots and the values on the shared ones differ a little."""
+    prev = pair_contract._DOT_MODE
+    pair_contract._DOT_MODE = "onehot"
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        with plan_tally() as metas:
+            F = ParIlut(iterations=ILUT_ITERATIONS).generate(A)
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counters()
+    finally:
+        pair_contract._DOT_MODE = prev
+    split = by_plan(metas, plan)
+    agree = {}
+    for name in ("l_factor", "u_factor"):
+        (k1, v1), (k2, v2) = (_pattern_keys(getattr(f, name))
+                              for f in (F, F_ref))
+        common, i1, i2 = np.intersect1d(k1, k2, return_indices=True)
+        agree[name] = dict(
+            nnz=int(k1.size), nnz_kernel_d=int(k2.size),
+            shared=float(common.size / max(k2.size, 1)),
+            max_rel_diff_shared=float(np.abs(v1[i1].astype(np.float64)
+                                             - v2[i2]).max()
+                                      / np.abs(v2).max()))
+    say("ilut_generate_onehot", seconds=seconds, launches=launches,
+        kernel_e_by_plan=split, against_kernel_d=agree)
+    if split != ILUT_LAUNCHES or launches["pair_contract_cumsum"] != 0:
+        raise AssertionError(f"one-hot ParILUT generate: kernel E launches "
+                             f"{split}, kernel D "
+                             f"{launches['pair_contract_cumsum']}")
+    for name, a in agree.items():
+        if not a["shared"] >= 0.99:
+            raise AssertionError(f"one-hot ParILUT {name}: only "
+                                 f"{a['shared']:.4f} of kernel D's pattern")
+        if not a["max_rel_diff_shared"] <= ONEHOT_FACTOR_TOL:
+            raise AssertionError(f"one-hot ParILUT {name}: values on the "
+                                 f"shared slots differ by "
+                                 f"{a['max_rel_diff_shared']:.3e} > "
+                                 f"{ONEHOT_FACTOR_TOL}")
+    return launches
+
+
+# -- kernels D and E -------------------------------------------------------------
+PLAN_STREAMS = ("pls", "pus", "pos", "pes", "pesp", "lq", "uq", "nv", "lbase",
+                "ubase")
+
+
+def contraction_case(cplan, seed):
+    """f32 operands from a numpy seed, every stream of the kernel plan and
+    the raw triple on the card."""
+    k = cplan["kernel"]
+    meta = dict(k["meta"])
+    g = np.random.default_rng(seed)
+    a = torch.from_numpy(g.standard_normal(meta["n_a"]).astype(
+        np.float32)).to(DEV)
+    b = torch.from_numpy(g.standard_normal(meta["n_b"]).astype(
+        np.float32)).to(DEV)
+    arrs = {name: torch.from_numpy(k[name]).to(DEV) for name in PLAN_STREAMS}
+    arrs["tail"] = tuple(torch.from_numpy(t).to(DEV).long()
+                         for t in k["tail"])
+    raw = tuple(torch.from_numpy(t).to(DEV).long() for t in cplan["raw"])
+    return a, b, arrs, k["meta"], raw
+
+
+def pair_needed_bytes_ops(cplan, itemsize=4):
+    """Bytes and operations the contraction needs at least, the same for
+    kernels D and E: each planned pair's three int16 indices (6 B; the
+    padding slots of the streams are the layout's, not the function's),
+    the live vregs' window starts, the per-tile tables, a and b read once,
+    y written once, and the tail's indices (12 B a pair; its values are
+    reads of a and b); a multiply and an add a pair."""
+    k = cplan["kernel"]
+    meta = dict(k["meta"])
+    live = int(k["nv"].sum())
+    pairs = len(cplan["raw"][0])
+    tail = len(k["tail"][0])
+    nbytes = ((pairs - tail) * 6 + live * 8 + meta["T"] * 12
+              + (meta["n_a"] + meta["n_b"] + meta["n_out"]) * itemsize
+              + tail * 12)
+    return nbytes, 2 * pairs
+
+
+def check_pair(name, mode, cplan, seed):
+    """One kernel on one plan: error against the plain version and the
+    f64 oracle, then times.  Returns the phase's fields."""
+    a, b, arrs, meta, raw = contraction_case(cplan, seed)
+    n_out = dict(meta)["n_out"]
+    prev = pair_contract._DOT_MODE
+    pair_contract._DOT_MODE = mode
+    try:
+        fn = pair_contract.pair_contract_planned_cuda
+        y = fn(a, b, arrs, meta)
+        torch.cuda.synchronize()
+        plain = pair_contract.pair_contract_planned_reference(a, b, arrs,
+                                                              meta)
+        oracle = pair_contract.pair_contract_reference(a.double(),
+                                                       b.double(), *raw,
+                                                       n_out)
+        assert y.shape == plain.shape == (n_out,) and y.dtype == a.dtype
+        assert bool(torch.isfinite(y).all())
+        err_plain, scale = rel_err(y, plain)
+        err_oracle, _ = rel_err(y, oracle)
+        tol = PAIR_TOL[name]
+        if not (err_plain <= tol and err_oracle <= tol):
+            raise AssertionError(f"{name} disagrees: rel err {err_plain:.3e}"
+                                 f" to its plain version, {err_oracle:.3e} "
+                                 f"to the f64 oracle (tol {tol})")
+        ms = time_ms(lambda: fn(a, b, arrs, meta), 20)
+        plain_ms = time_ms(lambda: pair_contract.pair_contract_planned_reference(
+            a, b, arrs, meta), 3)
+    finally:
+        pair_contract._DOT_MODE = prev
+    lib = time_ms(lambda: pair_contract.pair_contract_reference(
+        a, b, *raw, n_out), 10)
+    nbytes, nops = pair_needed_bytes_ops(cplan)
+    bms, by = bound(nbytes, nops)
+    # what the kernel streams of int16 indices, padding slots included
+    index_stream_bytes = (int(cplan["kernel"]["nv"].sum()) * 1024 * 2
+                          * (4 if mode == "cumsum_batched" else 3))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bms,
+                bound_by=by, bytes=nbytes,
+                index_stream_bytes=index_stream_bytes, pairs=nops // 2,
+                effective_GBps=nbytes / (ms * 1e-3) / 1e9,
+                max_abs_err=err_plain * scale, max_rel_err=err_plain,
+                max_rel_err_vs_f64_oracle=err_oracle)
+
+
+def phase_kernels_de(plan):
+    """Kernels D and E at the ParILUT path's product and denominator
+    plans.  The ``kernels`` line carries the product plan's numbers (23 of
+    the 42 launches of a generate, and most of its time)."""
+    out = []
+    for name, mode, src_line in (
+            ("pair_contract_cumsum", "cumsum_batched", 535),
+            ("pair_contract_onehot", "onehot", 412)):
+        fields = {pname: check_pair(name, mode, plan[pname], seed)
+                  for pname, seed in (("prod", 31), ("den", 32))}
+        say("kernel_d" if mode == "cumsum_batched" else "kernel_e",
+            name=name, plans=fields)
+        out.append(dict(name=name, route="cuda",
+                        source="ginkgo_tpu_torch/ops/csrc/pair_contract.cu",
+                        replaces=f"ginkgo_tpu/ops/pair_contract.py:{src_line}",
+                        **{key: fields["prod"][key] for key in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}))
+    return out
 
 
 def small_ilu_solves_match_cpu():
@@ -593,6 +933,71 @@ def small_ilu_solves_match_cpu():
         say("small_solve", case=label, card_algorithms=ag,
             host_algorithms=ac, card_iterations=ig.tolist(),
             host_iterations=ic.tolist())
+
+
+def _assert_factors_match(label, Fg, Fc, rtol):
+    for name in ("l_factor", "u_factor"):
+        g = getattr(Fg, name).to_matrix_data()
+        c = getattr(Fc, name).to_matrix_data()
+        if not (np.array_equal(g.row_idx, c.row_idx)
+                and np.array_equal(g.col_idx, c.col_idx)):
+            raise AssertionError(f"{label} {name}: card and host patterns "
+                                 f"differ ({g.nnz} vs {c.nnz} entries)")
+        err = float(np.abs(g.values - c.values).max()
+                    / np.abs(c.values).max())
+        if not err <= rtol:
+            raise AssertionError(f"{label} {name}: card and host values "
+                                 f"differ by {err:.3e} (relative)")
+
+
+def small_ilut_match_cpu():
+    """Packed ParILUT/ParICT on small matrices, card (kernel D, f64
+    instantiation) against host (the raw triples); then an
+    Ilu(ParIlut)-BiCGSTAB f32 solve on both.  ParICT runs on symmetric
+    matrices (the FEM case's packed ParICT plan declines on the kernel
+    tier, and a nonsymmetric matrix amplifies rounding through its square
+    roots)."""
+    fem = build_matrix_data({"fem": 4096, "offscale": 1.2})
+    band = random_banded(3000, 40, 8, seed=1)
+    cases = (("parilut_fem", fem, ParIlut), ("parilut_band", band, ParIlut),
+             ("parict_band", symmetric_part(band), ParIct),
+             ("parict_band_narrow",
+              symmetric_part(random_banded(800, 10, 5, seed=5)), ParIct))
+    for label, data, P in cases:
+        out = []
+        for dev in (DEV, torch.device("cpu")):
+            A = gtt.Csr.from_data(data, dtype=np.float64, device=dev)
+            reset_counters()
+            F = P(iterations=3, algorithm="packed").generate(A)
+            out.append((F, read_counters()["pair_contract_cumsum"]))
+        (Fg, ng), (Fc, nc) = out
+        if ng <= 0 or nc != 0:
+            raise AssertionError(f"{label}: kernel D launched {ng} times on "
+                                 f"the card and {nc} on the host")
+        _assert_factors_match(label, Fg, Fc, 1e-10)
+        say("small_parilut", case=label, n=data.shape[0],
+            kernel_d_launches=ng, l_nnz=Fg.l_factor.nnz,
+            u_nnz=Fg.u_factor.nnz)
+    b = np.random.default_rng(3).standard_normal((4096, 3)).astype(
+        np.float32)
+    out = []
+    for dev in (DEV, torch.device("cpu")):
+        A = gtt.Csr.from_data(fem, dtype=np.float32, strategy="packed",
+                              device=dev)
+        M = Ilu(factorization=ParIlut(iterations=5,
+                                      algorithm="packed")).generate(A)
+        res = Bicgstab.solve(A, torch.from_numpy(b).to(dev),
+                             criteria=Iteration(300) | ResidualNorm(1e-5),
+                             preconditioner=M)
+        out.append(((M.l_solver.algorithm, M.u_solver.algorithm),
+                    res.iterations.cpu(), res.converged.cpu(), res.x.cpu()))
+    (ag, ig, cg, xg), (ac, ic, cc, xc) = out
+    assert bool(cg.all()) and bool(cc.all()), (cg, cc)
+    assert ag == ac == ("exact_packed", "exact_packed"), (ag, ac)
+    assert int((ig - ic).abs().max()) <= 1, (ig, ic)
+    say("small_solve", case="ilut_f32", card_algorithms=ag,
+        host_algorithms=ac, card_iterations=ig.tolist(),
+        host_iterations=ic.tolist(), x_rel_diff=rel_err(xg, xc)[0])
 
 
 def small_solves_match_cpu():
@@ -687,16 +1092,24 @@ def main() -> int:
     assert Ai.strategy == "packed"
     assert M.l_solver.algorithm == M.u_solver.algorithm == "exact_packed"
 
-    kernels = [phase_kernel_a(Ab), phase_kernel_b(Ap),
-               phase_kernel_c(M.l_solver, F.l_factor)]
+    Ft, Mt, plan, ilut_launches = ilut_generate(Ai)
+    onehot_launches = ilut_generate_onehot(Ai, Ft, plan)
 
+    kernels = [phase_kernel_a(Ab), phase_kernel_b(Ap),
+               phase_kernel_c(M.l_solver, F.l_factor),
+               *phase_kernels_de(plan)]
+    del plan
+
+    ilu_launches, ilu_iters, bare_iters = main_ilu(Ai, M)
     runs = [main_path("banded", Ab, "banded", "dia_spmv"),
             main_path("packed", Ap, "packed", "pell_spmv"),
-            main_ilu(Ai, M)]
+            ilu_launches, ilut_launches,
+            main_ilut(Ai, Mt, ilu_iters, bare_iters), onehot_launches]
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in runs)
     small_solves_match_cpu()
     small_ilu_solves_match_cpu()
+    small_ilut_match_cpu()
 
     print(json.dumps({"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces",

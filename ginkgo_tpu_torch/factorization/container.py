@@ -13,12 +13,16 @@ from ..base.linop import LinOp
 
 
 class Factorization(LinOp):
-    """L (unit or general lower) and U (upper) factors; for IC, U = Lᴴ."""
+    """L (unit or general lower) and U (upper) factors; for IC, U = Lᴴ.
+
+    ``route`` names the path that made them where the factory has several
+    (ParILUT/ParICT: ``"dia"``, ``"packed"`` or ``"general"``), else None."""
 
     def __init__(self, l_factor, u_factor, symmetric: bool = False):
         self.l_factor = l_factor
         self.u_factor = u_factor
         self.symmetric = bool(symmetric)
+        self.route = None
 
     @property
     def shape(self):

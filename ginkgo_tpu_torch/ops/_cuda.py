@@ -39,6 +39,11 @@ SIGNATURES = {
     "tri_packed": ("tri_packed_launch",
                    [_I, _P, _P, _P, _P, _I, _I, _I, _L, _I, _P, _L, _P, _L,
                     _I, _P]),
+    # mode, vcode, a, na, b, nb, pls, pus, pes|pos, pesp, lq, uq, nv, lbase,
+    # ubase, T, NV, n_out, y, stream
+    "pair_contract": ("pair_contract_launch",
+                      [_I, _I, _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _I, _I, _L, _P, _P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

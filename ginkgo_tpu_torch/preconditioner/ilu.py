@@ -57,8 +57,8 @@ class _FactorPreconditioner:
 class Ilu(_FactorPreconditioner):
     """Factory: ``Ilu(factorization=ParIlu()).generate(A)``.
 
-    ``factorization``: a factorization factory (ParIlu/Ilu0) or an
-    already-generated Factorization; defaults to exact ILU(0).
+    ``factorization``: a factorization factory (ParIlu/Ilu0/ParIlut) or
+    an already-generated Factorization; defaults to exact ILU(0).
     """
 
     @staticmethod
@@ -69,7 +69,8 @@ class Ilu(_FactorPreconditioner):
 
 class Ic(_FactorPreconditioner):
     """Factory: IC preconditioner M⁻¹ = L⁻ᴴ L⁻¹ (``ic.hpp:109``;
-    ``u_solver`` is the reference's lh_solver slot); defaults to exact
+    ``u_solver`` is the reference's lh_solver slot).  ``factorization``:
+    ParIc/Ic0/ParIct or a generated Factorization; defaults to exact
     IC(0)."""
 
     @staticmethod

@@ -147,6 +147,33 @@ def random_lower_factor(n: int, per: int, reach: int, seed: int,
                       np.concatenate([c, np.arange(n)]), vals).canonical()
 
 
+def random_banded(n: int, bw: int, per_row: int,
+                  seed: int = 0) -> MatrixData:
+    """Unstructured banded pattern (the RCM'd-FEM class): ``per_row``
+    random columns within ``bw`` of the diagonal in every row
+    (``numpy.random.default_rng(seed)``), off-diagonal values of size 0.1
+    and a diagonal of 4; no shared diagonal structure.  The JAX package's
+    packed-ParILUT tests build their matrices with the same recipe."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), per_row)
+    cols = np.clip(rows + rng.integers(-bw, bw + 1, size=rows.size),
+                   0, n - 1)
+    vals = rng.standard_normal(rows.size) * 0.1
+    rows = np.concatenate([rows, np.arange(n)])
+    cols = np.concatenate([cols, np.arange(n)])
+    vals = np.concatenate([vals, np.full(n, 4.0)])
+    return MatrixData((n, n), rows, cols, vals).canonical()
+
+
+def symmetric_part(data: MatrixData) -> MatrixData:
+    """(A + Aᵀ) / 2 of a real square matrix, canonical."""
+    return MatrixData(data.shape,
+                      np.concatenate([data.row_idx, data.col_idx]),
+                      np.concatenate([data.col_idx, data.row_idx]),
+                      np.concatenate([data.values, data.values]) * 0.5
+                      ).canonical()
+
+
 def permute_locally(data: MatrixData, run: int = 256,
                     seed: int = 0) -> MatrixData:
     """Symmetric permutation P A Pᵀ that shuffles rows only inside each run

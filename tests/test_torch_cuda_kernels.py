@@ -15,14 +15,16 @@ import torch
 
 import ginkgo_tpu_torch as gtt
 from ginkgo_tpu_torch.benchmark import build_matrix_data
-from ginkgo_tpu_torch.factorization import ParIlu
-from ginkgo_tpu_torch.ops import (registry, spmv_banded, spmv_packed,
-                                  tri_inv, tri_packed)
+from ginkgo_tpu_torch.factorization import ParIct, ParIlu, ParIlut
+from ginkgo_tpu_torch.ops import (pair_contract, registry, spmv_banded,
+                                  spmv_packed, tri_inv, tri_packed)
 from ginkgo_tpu_torch.preconditioner import Ilu, Jacobi
 from ginkgo_tpu_torch.solver import Bicgstab, Cg
 from ginkgo_tpu_torch.stop import Iteration, ResidualNorm
 from ginkgo_tpu_torch.utils.generators import (permute_locally,
-                                               random_lower_factor, stencil_3d)
+                                               random_banded,
+                                               random_lower_factor, stencil_3d,
+                                               symmetric_part)
 
 pytestmark = pytest.mark.cuda
 
@@ -242,3 +244,146 @@ def test_ilu_bicgstab_on_card_matches_host(dev):
     assert bool(rg.converged.all()) and bool(rc.converged.all())
     assert int((rg.iterations.cpu() - rc.iterations).abs().max()) <= 1
     assert _rel_err(rg.x.cpu(), rc.x) <= 1e-4
+
+
+# -- kernels D and E: pair contraction ------------------------------------------
+PAIR_MODES = {"cumsum_batched": pair_contract.pair_contract_cumsum_cuda,
+              "onehot": pair_contract.pair_contract_onehot_cuda}
+PAIR_STREAMS = ("pls", "pus", "pos", "pes", "pesp", "lq", "uq", "nv", "lbase",
+                "ubase")
+
+
+def _spill_plan():
+    """Pairs past a per-tile budget of 4 vregs spill to the COO tail."""
+    rng = np.random.default_rng(1)
+    po = np.sort(rng.integers(0, 1024, 40000))
+    pl = rng.integers(0, 2048, len(po))
+    pu = rng.integers(0, 2048, len(po))
+    plan = pair_contract.plan_pair_contract(pl, pu, po, 1024, 2048, 2048,
+                                            nv_cap=4, max_tail=1.0)
+    assert len(plan["tail"][0]) > 0
+    return plan, (pl, pu, po, 1024, 2048, 2048)
+
+
+def _shifted_plan():
+    """A wide-spread list that plans only at coarse windows (shifts > 0)."""
+    rng = np.random.default_rng(3)
+    n_out, n_a, n_b = 50000, 30000, 35000
+    po = np.repeat(np.arange(n_out), rng.poisson(4.0, n_out))
+    m = len(po)
+    pl = np.clip((po * n_a) // n_out + rng.integers(-3000, 3000, m),
+                 0, n_a - 1)
+    pu = np.clip((po * n_b) // n_out + rng.integers(-20000, 20000, m),
+                 0, n_b - 1)
+    shifts = pair_contract._select_shifts(pl, pu, po, n_out,
+                                          pair_contract._NV_CAP)
+    assert shifts != (0, 0)
+    plan = pair_contract.plan_pair_contract(pl, pu, po, n_out, n_a, n_b,
+                                            shifts=shifts)
+    return plan, (pl, pu, po, n_out, n_a, n_b)
+
+
+def _empty_tile_plan():
+    """Tile 1 holds no pair (nv[1] == 0)."""
+    rng = np.random.default_rng(4)
+    po = np.sort(np.concatenate([rng.integers(0, 1024, 3000),
+                                 rng.integers(2048, 3000, 3000)]))
+    pl = np.clip(po + rng.integers(-100, 100, po.size), 0, 2999)
+    pu = np.clip(po + rng.integers(-100, 100, po.size), 0, 2999)
+    plan = pair_contract.plan_pair_contract(pl, pu, po, 3000, 3000, 3000)
+    assert plan["nv"][1] == 0
+    return plan, (pl, pu, po, 3000, 3000, 3000)
+
+
+def _pair_args(plan, lists, dtype, dev):
+    g = np.random.default_rng(9)
+    a = torch.from_numpy(g.standard_normal(lists[4])).to(dev, dtype)
+    b = torch.from_numpy(g.standard_normal(lists[5])).to(dev, dtype)
+    arrs = {k: torch.from_numpy(plan[k]).to(dev) for k in PAIR_STREAMS}
+    arrs["tail"] = tuple(torch.from_numpy(t).to(dev).long()
+                         for t in plan["tail"])
+    return a, b, arrs
+
+
+@pytest.fixture
+def dot_mode():
+    prev = pair_contract._DOT_MODE
+    yield
+    pair_contract._DOT_MODE = prev
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("mode", list(PAIR_MODES))
+@pytest.mark.parametrize("make", [_spill_plan, _shifted_plan,
+                                  _empty_tile_plan],
+                         ids=["spill", "shifted", "empty_tile"])
+def test_pair_kernels_match_plain(dev, make, mode, dtype, dot_mode):
+    plan, lists = make()
+    a, b, arrs = _pair_args(plan, lists, dtype, dev)
+    kernel = PAIR_MODES[mode]
+    pair_contract._DOT_MODE = mode
+    before = kernel.launches
+    y = pair_contract.pair_contract_planned_cuda(a, b, arrs, plan["meta"])
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 1
+    assert y.dtype == dtype and y.device.type == "cuda"
+    want = pair_contract.pair_contract_planned_reference(a, b, arrs,
+                                                         plan["meta"])
+    oracle = pair_contract.pair_contract_reference(
+        a.double(), b.double(), *(torch.from_numpy(np.asarray(x)).to(dev)
+                                  for x in lists[:3]), lists[3])
+    # f32: sums in other orders (kernel E's atomics in a changing order,
+    # kernel D's cumsum difference losing digits to cancellation)
+    tol = {torch.float32: 2e-5 if mode == "onehot" else 1e-5,
+           torch.float64: 1e-12}[dtype]
+    assert _rel_err(y, want) <= tol
+    assert _rel_err(y, oracle) <= tol
+    if make is _empty_tile_plan:
+        assert bool((y[1024:2048] == 0).all())
+
+
+def test_pair_wrappers_raise_instead_of_falling_back(dev):
+    plan, lists = _spill_plan()
+    a, b, arrs = _pair_args(plan, lists, torch.float32, dev)
+    meta = plan["meta"]
+    for fn in PAIR_MODES.values():
+        with pytest.raises(TypeError):
+            fn(a, b.double(), arrs, meta)
+        with pytest.raises(TypeError):
+            fn(a.half(), b.half(), arrs, meta)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn(a.to(torch.complex64), b.to(torch.complex64), arrs, meta)
+        with pytest.raises(ValueError, match="one device"):
+            fn(a, b, {k: (tuple(t.cpu() for t in v) if k == "tail"
+                          else v.cpu()) for k, v in arrs.items()}, meta)
+        with pytest.raises(ValueError):
+            fn(a[:-1].repeat(2), b, arrs, meta)      # longer than the plan
+        bad = dict(arrs, pls=arrs["pls"].int())
+        with pytest.raises(ValueError):
+            fn(a, b, bad, meta)
+    assert registry.lookup("pair_contract_planned", dev) is \
+        pair_contract.pair_contract_planned_cuda
+
+
+@pytest.mark.parametrize("case", ["ilut", "ict"])
+def test_packed_parilut_on_card_matches_host(dev, case):
+    """Packed ParILUT/ParICT on the card (kernel D, f64) against the host
+    (raw triples): same patterns, values to 1e-10 relative."""
+    data = random_banded(3000, 40, 8, seed=1)
+    P = ParIlut
+    if case == "ict":
+        data, P = symmetric_part(data), ParIct
+    before = pair_contract.pair_contract_cumsum_cuda.launches
+    Fg = P(iterations=3, algorithm="packed").generate(
+        gtt.Csr.from_data(data, device=dev))
+    assert pair_contract.pair_contract_cumsum_cuda.launches > before
+    assert Fg.route == "packed"
+    Fc = P(iterations=3, algorithm="packed").generate(
+        gtt.Csr.from_data(data, device="cpu"))
+    for name in ("l_factor", "u_factor"):
+        g = getattr(Fg, name).to_matrix_data()
+        c = getattr(Fc, name).to_matrix_data()
+        assert np.array_equal(g.row_idx, c.row_idx)
+        assert np.array_equal(g.col_idx, c.col_idx)
+        np.testing.assert_allclose(g.values, c.values, rtol=1e-10,
+                                   atol=1e-10 * np.abs(c.values).max())
