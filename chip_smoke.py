@@ -48,14 +48,32 @@ exits non-zero:
    and the gather + ``index_add_`` of the raw triples;
 13. small solves on the card agree with the port's CPU run: Jacobi-CG and
    Ic-CG in f64, Ilu-BiCGSTAB in f32 and f64, packed ParILUT and ParICT
-   factors in f64, and Ilu(ParIlut)-BiCGSTAB in f32.
+   factors in f64, and Ilu(ParIlut)-BiCGSTAB in f32;
+14. kernel F (in-place Krylov-basis row write): random rows into f32, f64,
+   bf16, f16, int16 and int8 stores of the (m_pad, n) and (m_pad, n, 3)
+   layouts, bit for bit the plain ``copy_``, in place and allocating
+   nothing; timed at n = 4,096,000 f32 beside its byte bound, its plain
+   version and ``store[i].copy_(row)``;
+15. main path, GMRES: ``Gmres.solve`` on the nx=160 stencil (f32,
+   krylov_dim 100, CGS2, ``ResidualNorm(1e-3)``), then ``CbGmres`` with a
+   bf16 (``reduce1``) and an int16 (``integer``) basis, each converged to
+   a true residual under 1e-3, with kernel A counted and kernel F's
+   launches equal to the Arnoldi steps plus the ``restart_fields`` calls;
+16. GMRES with TF32 turned on by the caller: the same iterations and x;
+17. kernels G and H (the attic windowed-ELL and chunk-ELL SpMVs): planned
+   on the ILU system's matrix, applied with their COO tails through the
+   attic's own apply (the counted path), held against their plain
+   versions, an f64 product and small random matrices, and timed beside
+   their byte bounds, their plain versions and cuSPARSE;
+18. small GMRES solves on the card agree with the port's CPU run: f64,
+   ``keep`` and ``integer`` bases, two right-hand sides.
 
 The line before the last is a JSON object with every kernel's launches on
 the main paths, error against its plain version, time, plain time, bound
-and library time (cuSPARSE for A-C; for D and E, whose contraction no
-single PyTorch call computes, the gather + ``index_add_`` of the raw
-pair triples, on the product plan); the last line is
-``{"ok": true, "device": ...}``.
+and library time (cuSPARSE for A-C, G and H; for D and E, whose
+contraction no single PyTorch call computes, the gather + ``index_add_``
+of the raw pair triples, on the product plan; for F ``copy_``); the last
+line is ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -75,11 +93,13 @@ from ginkgo_tpu_torch import native
 from ginkgo_tpu_torch.benchmark import build_matrix_data
 from ginkgo_tpu_torch.factorization import (ParIct, ParIlu, ParIlut,
                                             par_ilut_packed)
-from ginkgo_tpu_torch.ops import (_cuda, pair_contract, spmv_banded,
-                                  spmv_packed, tri_packed)
+from ginkgo_tpu_torch.ops import (_cuda, pair_contract, row_write,
+                                  spmv_banded, spmv_packed, tri_packed)
+from ginkgo_tpu_torch.ops.attic import spmv_chunked, spmv_windowed
 from ginkgo_tpu_torch.ops.spmv import coo_spmv
 from ginkgo_tpu_torch.preconditioner import Ic, Ilu, Jacobi
-from ginkgo_tpu_torch.solver import Bicgstab, Cg
+from ginkgo_tpu_torch.solver import Bicgstab, CbGmres, Cg, Gmres
+from ginkgo_tpu_torch.solver import gmres as gmres_mod
 from ginkgo_tpu_torch.stop import Iteration, ResidualNorm
 from ginkgo_tpu_torch.ops.tri_inv import batched_lowtri_inverse
 from ginkgo_tpu_torch.utils import stagetimer
@@ -119,6 +139,16 @@ PAIR_TOL = {"pair_contract_cumsum": 1e-5, "pair_contract_onehot": 2e-5}
 # another order (3.7e-3 on L and 4.5e-3 on U in three runs on the H100),
 # far below the O(1) of values gone wrong
 ONEHOT_FACTOR_TOL = 2e-2
+# the GMRES path: the JAX package's solver benchmark on the nx=160 stencil
+# (benchmark_results/tpu_v5e/solver_large.json, "stencil(27pt, 160)"):
+# the solver defaults krylov_dim=100 and CGS2, rel_res_goal 1e-3; the
+# bases of CB-GMRES: bf16 (reduce1 of f32) and int16 (integer)
+GMRES_KRYLOV_DIM = 100
+GMRES_TOL = 1e-3
+CB_STORAGES = ("reduce1", "integer")
+# kernels G and H against their plain versions and an f64 product,
+# relative to max |y|: f32 sums in another order
+ATTIC_TOL = 1e-5
 DEV = torch.device("cuda")
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 1e-5,
        torch.float16: 1e-5}
@@ -135,17 +165,30 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps):
+# about 20 ms of a spinning kernel at the H100's clock: the host enqueues
+# the timed launches behind it
+QUEUE_AHEAD_CYCLES = 40_000_000
+
+
+def time_ms(fn, reps, queue_ahead=False):
     """Mean ms per call from CUDA events around ``reps`` calls, after one
-    warm-up call."""
+    warm-up call.  With ``queue_ahead`` the card first spins while the
+    host enqueues the calls, so launches that take less time on the card
+    than on the host run back to back and the events time the card, not
+    the host (a launch through a wrapper costs tens of µs of Python)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue_ahead:
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
+    if queue_ahead and start.query():
+        raise AssertionError("the card finished spinning before the host "
+                             "had enqueued the timed launches")
     end.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -179,7 +222,7 @@ def library_ms(A, x, reps):
     S = torch.sparse_csr_tensor(A.row_ptr, A.col_idx[:nnz], A.values[:nnz],
                                 size=A.shape)
     y = S @ x
-    return time_ms(lambda: S @ x, reps), y
+    return time_ms(lambda: S @ x, reps, queue_ahead=True), y
 
 
 # -- kernel A -----------------------------------------------------------------
@@ -237,7 +280,7 @@ def phase_kernel_a(A):
         raise AssertionError(f"dia_spmv kernel disagrees at nx={BANDED_NX}:"
                              f" rel err {err:.3e}")
     ms = time_ms(lambda: spmv_banded.dia_spmv_cuda(
-        offsets, A.diag_values, meta, x), 50)
+        offsets, A.diag_values, meta, x), 50, queue_ahead=True)
     plain = time_ms(lambda: spmv_banded.dia_spmv_reference(
         offsets, A.diag_values, meta, x), 10)
     lib, ylib = library_ms(A, x, 20)
@@ -319,7 +362,8 @@ def phase_kernel_b(A):
     if not err <= TOL[torch.float32]:
         raise AssertionError(f"pell_spmv kernel disagrees on the packed "
                              f"main-path matrix: rel err {err:.3e}")
-    ms = time_ms(lambda: spmv_packed.pell_spmv_cuda(*args, x), 50)
+    ms = time_ms(lambda: spmv_packed.pell_spmv_cuda(*args, x), 50,
+                 queue_ahead=True)
     plain = time_ms(lambda: spmv_packed.pell_spmv_reference(*args, x), 5)
     lib, ylib = library_ms(A, x, 20)
     lib_err, _ = rel_err(ylib, want)
@@ -376,6 +420,7 @@ def tri_library_ms(L, b, reps):
         torch.cuda.synchronize()
     except (RuntimeError, NotImplementedError, TypeError) as exc:
         return None, f"{type(exc).__name__}: {exc}"
+    # not queued ahead: each call waits on the host (about 75 ms a call)
     return time_ms(lambda: torch.triangular_solve(b, S, upper=False),
                    reps), x
 
@@ -468,7 +513,7 @@ def phase_kernel_c(op, L):
         raise AssertionError(f"tri_packed kernel disagrees on the ILU "
                              f"factor: rel err {err:.3e}")
     ms = time_ms(lambda: tri_packed.packed_trisolve_cuda(
-        arrays, meta_items, b), 20)
+        arrays, meta_items, b), 20, queue_ahead=True)
     plain = time_ms(lambda: tri_packed.packed_trisolve_reference(
         arrays, meta_items, b), 3)
     lib, ylib = tri_library_ms(L, b, 5)
@@ -497,7 +542,10 @@ COUNTERS = {"dia_spmv": spmv_banded.dia_spmv_cuda,
             "pell_spmv": spmv_packed.pell_spmv_cuda,
             "tri_packed": tri_packed.packed_trisolve_cuda,
             "pair_contract_cumsum": pair_contract.pair_contract_cumsum_cuda,
-            "pair_contract_onehot": pair_contract.pair_contract_onehot_cuda}
+            "pair_contract_onehot": pair_contract.pair_contract_onehot_cuda,
+            "row_write": row_write.row_write_cuda,
+            "well_spmv": spmv_windowed.well_spmv_cuda,
+            "cell_spmv": spmv_chunked.cell_spmv_cuda}
 
 
 def reset_counters():
@@ -849,13 +897,13 @@ def check_pair(name, mode, cplan, seed):
             raise AssertionError(f"{name} disagrees: rel err {err_plain:.3e}"
                                  f" to its plain version, {err_oracle:.3e} "
                                  f"to the f64 oracle (tol {tol})")
-        ms = time_ms(lambda: fn(a, b, arrs, meta), 20)
+        ms = time_ms(lambda: fn(a, b, arrs, meta), 20, queue_ahead=True)
         plain_ms = time_ms(lambda: pair_contract.pair_contract_planned_reference(
             a, b, arrs, meta), 3)
     finally:
         pair_contract._DOT_MODE = prev
     lib = time_ms(lambda: pair_contract.pair_contract_reference(
-        a, b, *raw, n_out), 10)
+        a, b, *raw, n_out), 10, queue_ahead=True)
     nbytes, nops = pair_needed_bytes_ops(cplan)
     bms, by = bound(nbytes, nops)
     # what the kernel streams of int16 indices, padding slots included
@@ -1000,6 +1048,334 @@ def small_ilut_match_cpu():
         host_iterations=ic.tolist(), x_rel_diff=rel_err(xg, xc)[0])
 
 
+# -- kernel F -------------------------------------------------------------------
+ROW_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.float16,
+              torch.int16, torch.int8)
+# n = 1003 leaves ragged ends and rows that start off 16-byte boundaries
+ROW_SHAPES = ((13, 1003), (13, 1003, 3), (16, 4096))
+
+
+def random_tensor(shape, dtype):
+    if dtype.is_floating_point:
+        return torch.randn(shape, device=DEV).to(dtype)
+    info = torch.iinfo(dtype)
+    return torch.randint(info.min, info.max, shape, device=DEV, dtype=dtype)
+
+
+def check_row_write(store, rows):
+    """Write ``rows`` ({row index: tensor}) into ``store`` with kernel F:
+    bit for bit the plain ``copy_``, the other rows untouched, the store
+    written in place, nothing allocated."""
+    want = store.clone()
+    torch.cuda.synchronize()
+    ptr, mem = store.data_ptr(), torch.cuda.memory_allocated()
+    for i, row in rows.items():
+        if row_write.row_write_cuda(store, i, row) is not store:
+            raise AssertionError("kernel F returned another tensor")
+        want[i].copy_(row)
+    torch.cuda.synchronize()
+    if store.data_ptr() != ptr or torch.cuda.memory_allocated() > mem:
+        raise AssertionError(f"kernel F moved the store or allocated "
+                             f"({torch.cuda.memory_allocated() - mem} B)")
+    if not torch.equal(store.view(torch.uint8), want.view(torch.uint8)):
+        raise AssertionError(f"kernel F differs from copy_ on a "
+                             f"{store.dtype} store of shape "
+                             f"{tuple(store.shape)}")
+
+
+def phase_kernel_f(n):
+    for dtype in ROW_DTYPES:
+        for shape in ROW_SHAPES:
+            store = random_tensor(shape, dtype)
+            check_row_write(store, {i: random_tensor(shape[1:], dtype)
+                                    for i in (0, 6, shape[0] - 1)})
+    say("kernel_f_small", dtypes=[str(d) for d in ROW_DTYPES],
+        shapes=ROW_SHAPES, bit_exact=True)
+
+    # one GMRES row at the main path's n; the timed launches rotate over 7
+    # rows of the store and 4 sources (over 130 MB), so each launch finds
+    # its bytes outside the 50 MB L2 as the solver's writes do
+    store = torch.zeros((8, n), dtype=torch.float32, device=DEV)
+    srcs = torch.randn((4, n), dtype=torch.float32, device=DEV)
+    check_row_write(store, {1: srcs[0]})
+    err = float((store[1] - srcs[0]).abs().max())
+    turn = iter(range(1 << 30))
+
+    def rotating(write):
+        def launch():
+            j = next(turn)
+            write(1 + j % 7, srcs[j % 4])
+        return launch
+
+    ms = time_ms(rotating(lambda i, r: row_write.row_write_cuda(store, i, r)),
+                 20, queue_ahead=True)
+    plain = time_ms(rotating(
+        lambda i, r: row_write.row_write_reference(store, i, r)), 20,
+        queue_ahead=True)
+    lib = time_ms(rotating(lambda i, r: store[i].copy_(r)), 20,
+                  queue_ahead=True)
+    nbytes = 2 * n * 4
+    bms, by = bound(nbytes, 0)
+    say("kernel_f", n=n, dtype="float32", ms=ms, plain_ms=plain,
+        library_ms=lib, bound_ms=bms, bound_by=by, bytes=nbytes,
+        effective_GBps=nbytes / (ms * 1e-3) / 1e9, max_abs_err=err)
+    return dict(name="row_write", route="cuda",
+                source="ginkgo_tpu_torch/ops/csrc/row_write.cu",
+                replaces="ginkgo_tpu/solver/krylov_basis.py:48",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+
+
+# -- the GMRES path ---------------------------------------------------------------
+@contextlib.contextmanager
+def arnoldi_tally():
+    """Within the block, the Arnoldi steps and the restarts of GMRES's
+    two-level loop, counted by wrapping the step and restart functions
+    that the solver hands ``run_restarted_loop``."""
+    tally = {"arnoldi_steps": 0, "restarts": 0}
+    real = gmres_mod.run_restarted_loop
+
+    def counted(inner_step, cycle_done, restart_fn, *args, **kw):
+        def step(state, active):
+            tally["arnoldi_steps"] += 1
+            return inner_step(state, active)
+
+        def restart(state, sel):
+            tally["restarts"] += 1
+            return restart_fn(state, sel)
+
+        return real(step, cycle_done, restart, *args, **kw)
+
+    gmres_mod.run_restarted_loop = counted
+    try:
+        yield tally
+    finally:
+        gmres_mod.run_restarted_loop = real
+
+
+def main_gmres(A, storage=None):
+    """GMRES(100) (``storage`` None) or CB-GMRES on ``A``, b = ones,
+    through the port's entry points; returns every kernel's launches
+    during the solve."""
+    label = "main_gmres" if storage is None else f"main_cb_gmres_{storage}"
+    solver, kw = ((Gmres, {}) if storage is None
+                  else (CbGmres, dict(storage_precision=storage)))
+    b = torch.ones(A.shape[0], dtype=torch.float32, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with arnoldi_tally() as tally:
+        reset_counters()
+        t0 = time.perf_counter()
+        res = solver.solve(A, b, criteria=Iteration(1000) | ResidualNorm(
+            GMRES_TOL, baseline="rhs_norm"), krylov_dim=GMRES_KRYLOV_DIM,
+            ortho="cgs2", **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    true_rel = true_rel_residual(A, b, res.x)
+    iters = int(res.iterations[0])
+    # restart_fields writes row 0 once before the loop and once in each
+    # restart; each Arnoldi step writes row j + 1
+    writes = tally["arnoldi_steps"] + tally["restarts"] + 1
+    say(label, n=A.shape[0], storage=storage or "keep",
+        krylov_dim=GMRES_KRYLOV_DIM, iterations=iters, **tally,
+        converged=bool(res.converged.all()),
+        stagnated=bool(res.stagnated.any()), solve_s=seconds,
+        ms_per_iteration=seconds * 1e3 / max(iters, 1),
+        true_rel_residual=true_rel, launches=launches,
+        expected_row_writes=writes, peak_memory_GB=peak / 1e9)
+    if launches["dia_spmv"] <= 0:
+        raise AssertionError(f"{label}: the solve never launched dia_spmv")
+    if launches["row_write"] != writes:
+        raise AssertionError(f"{label}: {launches['row_write']} row_write "
+                             f"launches for {tally['arnoldi_steps']} Arnoldi"
+                             f" steps and {tally['restarts'] + 1} "
+                             f"restart_fields calls")
+    if not bool(res.converged.all()) or bool(res.stagnated.any()):
+        raise AssertionError(f"{label}: GMRES did not converge "
+                             f"(stagnated {bool(res.stagnated.any())})")
+    if not (np.isfinite(true_rel) and true_rel <= GMRES_TOL):
+        raise AssertionError(f"{label}: true relative residual "
+                             f"{true_rel:.3e} > {GMRES_TOL}")
+    return launches
+
+
+def gmres_tf32():
+    """GMRES(30) on a small f32 stencil with TF32 turned on by the caller:
+    the projection's products stay full f32, so the iterations and x equal
+    those of a run without it, and the caller's setting survives.  The
+    same run with the guard taken out is reported beside it."""
+    A = gtt.Csr.from_data(stencil_3d(32, points=27), dtype=np.float32)
+    b = torch.ones(A.shape[0], dtype=torch.float32, device=DEV)
+    flags = torch.backends.cuda.matmul
+    prev = flags.fp32_precision
+    guard = gmres_mod._full_f32_matmul
+
+    def run():
+        res = Gmres.solve(A, b, criteria=Iteration(500) | ResidualNorm(1e-4),
+                          krylov_dim=30)
+        torch.cuda.synchronize()
+        return int(res.iterations[0]), res.x, flags.fp32_precision
+
+    try:
+        it0, x0, _ = run()
+        flags.fp32_precision = "tf32"
+        it1, x1, kept = run()
+        gmres_mod._full_f32_matmul = contextlib.nullcontext
+        it2, x2, _ = run()
+    finally:
+        gmres_mod._full_f32_matmul = guard
+        flags.fp32_precision = prev
+    err = rel_err(x1, x0)[0]
+    say("gmres_tf32", n=A.shape[0], iterations=it0, iterations_tf32=it1,
+        x_rel_diff=err, caller_flag_after=kept,
+        unguarded_iterations_tf32=it2,
+        unguarded_x_rel_diff=rel_err(x2, x0)[0])
+    if kept != "tf32" or it1 != it0 or not err <= 1e-5:
+        raise AssertionError(f"GMRES under TF32: {it1} iterations against "
+                             f"{it0}, x differs by {err:.3e}, the caller's "
+                             f"flag reads {kept!r}")
+
+
+def small_gmres_match_cpu():
+    """f64 CB-GMRES(20) on a small FEM matrix, two right-hand sides, on the
+    card against the host: equal iterations, converged and stagnated, x to
+    1e-10."""
+    data = build_matrix_data({"fem": 4096, "offscale": 1.2})
+    b = np.random.default_rng(4).standard_normal((4096, 2))
+    for storage in ("keep", "integer"):
+        out = []
+        for dev in (DEV, torch.device("cpu")):
+            A = gtt.Csr.from_data(data, device=dev)
+            res = CbGmres.solve(A, torch.from_numpy(b).to(dev),
+                                criteria=Iteration(400) | ResidualNorm(1e-10),
+                                krylov_dim=20, storage_precision=storage)
+            out.append((res.iterations.cpu(), res.converged.cpu(),
+                        res.stagnated.cpu(), res.x.cpu()))
+        (ig, cg, sg, xg), (ic, cc, sc, xc) = out
+        assert bool(cg.all()), (storage, cg)
+        assert torch.equal(ig, ic) and torch.equal(cg, cc) and \
+            torch.equal(sg, sc), (storage, ig, ic, cg, cc, sg, sc)
+        torch.testing.assert_close(xg, xc, rtol=1e-10, atol=1e-10)
+        say("small_gmres", storage=storage, iterations=ig.tolist(),
+            x_rel_diff=rel_err(xg, xc)[0])
+
+
+# -- kernels G and H ----------------------------------------------------------------
+ATTIC = {"well_spmv": (spmv_windowed, "plan_windowed_layout",
+                       "ginkgo_tpu/ops/attic/spmv_windowed.py:200"),
+         "cell_spmv": (spmv_chunked, "plan_chunked_layout",
+                       "ginkgo_tpu/ops/attic/spmv_chunked.py:202")}
+
+
+def attic_plans(d):
+    """Both attic layouts of ``d`` (f32 values), on the card."""
+    vals = d.values.astype(np.float32)
+    plans = {}
+    for name, (mod, planner, _) in ATTIC.items():
+        t0 = time.perf_counter()
+        layout, tail, stats = getattr(mod, planner)(d, vals)
+        plans[name] = dict(mod=mod, t=mod.upload(layout, tail, DEV),
+                           stats=stats, plan_s=time.perf_counter() - t0)
+    return plans
+
+
+def main_attic(plans, m):
+    """The attic path: each layout's own apply (kernel plus COO tail) at
+    k = 1 and k = 3; returns the launches and the products."""
+    xs = [torch.randn((m, k), dtype=torch.float32, device=DEV)
+          for k in (1, 3)]
+    reset_counters()
+    ys = {name: [getattr(p["mod"], f"{name}_apply")(p["t"], x) for x in xs]
+          for name, p in plans.items()}
+    launches = read_counters()
+    for name in plans:
+        if launches[name] <= 0:
+            raise AssertionError(f"the attic apply never launched {name}")
+    return launches, xs, ys
+
+
+def attic_args(p):
+    return [p["t"][key] for key in p["mod"].ARRAYS] + [p["t"]["meta"]]
+
+
+def attic_needed_bytes(name, p, n, m):
+    """Bytes the ELL part needs at least: each kept entry's f32 value and
+    int16 index (6 B; padding slots are the layout's, not the function's),
+    the per-superblock window bases, for H the chunk id of each vreg that
+    holds an entry (G's q0 serves the TPU's sublane select only), x read
+    once and y written once."""
+    t = p["t"]
+    nbytes = p["stats"]["ell_nnz"] * 6 + t["xbase_row"].numel() * 4 \
+        + (m + n) * 4
+    if name == "cell_spmv":
+        live = int((t["vals"].reshape(t["qid"].numel(), -1) != 0).any(
+            dim=1).sum())
+        nbytes += live * 4
+    return nbytes
+
+
+def phase_kernels_gh(plans, xs, ys, A):
+    """Kernels G and H on the ILU system's matrix and on small random
+    matrices, against their plain versions and an f64 product."""
+    n, m = A.shape
+    d64 = A.values.double()
+    want = [coo_spmv(A.row_idx, A.col_idx, d64, x.double(), n) for x in xs]
+    small_plans = [(data, attic_plans(data))
+                   for data in small_packed_matrices()]
+    out = []
+    for name, p in plans.items():
+        mod, args = p["mod"], attic_args(p)
+        kernel = getattr(mod, f"{name}_cuda")
+        plain_fn = getattr(mod, f"{name}_reference")
+        worst = 0.0
+        for x, y, w in zip(xs, ys[name], want):
+            plain = mod.add_tail(plain_fn(*args, x), p["t"]["tail"], x)
+            e_plain, _ = rel_err(y, plain)
+            e_f64, _ = rel_err(y, w)
+            worst = max(worst, e_plain, e_f64)
+            if not (e_plain <= ATTIC_TOL and e_f64 <= ATTIC_TOL):
+                raise AssertionError(f"{name} disagrees at k={x.shape[1]}: "
+                                     f"rel err {e_plain:.3e} to its plain "
+                                     f"version, {e_f64:.3e} to the f64 "
+                                     f"product")
+        small = 0.0
+        for data, splans in small_plans:
+            sargs = attic_args(splans[name])
+            for k in (1, 3, 8, 9):
+                x = torch.randn((data.shape[1], k), dtype=torch.float32,
+                                device=DEV)
+                y = kernel(*sargs, x)
+                torch.cuda.synchronize()
+                e, _ = rel_err(y, plain_fn(*sargs, x))
+                small = max(small, e)
+                if not e <= ATTIC_TOL:
+                    raise AssertionError(f"{name} disagrees on a small "
+                                         f"matrix: rel err {e:.3e}")
+        x = xs[0]
+        y = kernel(*args, x)
+        err, scale = rel_err(y, plain_fn(*args, x))
+        ms = time_ms(lambda: kernel(*args, x), 20, queue_ahead=True)
+        plain_ms = time_ms(lambda: plain_fn(*args, x), 3)
+        lib, _ = library_ms(A, x, 20)
+        nbytes = attic_needed_bytes(name, p, n, m)
+        bms, by = bound(nbytes, 2 * p["stats"]["ell_nnz"])
+        say("kernel_g" if name == "well_spmv" else "kernel_h", name=name,
+            **p["stats"], plan_s=p["plan_s"], meta=dict(p["t"]["meta"]),
+            k=1, ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bms,
+            bound_by=by, bytes=nbytes,
+            effective_GBps=nbytes / (ms * 1e-3) / 1e9,
+            max_abs_err=err * scale, max_rel_err=err,
+            max_rel_err_apply=worst, max_rel_err_small=small)
+        out.append(dict(name=name, route="cuda",
+                        source=f"ginkgo_tpu_torch/ops/csrc/{name}.cu",
+                        replaces=ATTIC[name][2], max_abs_err=err * scale,
+                        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                        library_ms=lib))
+    return out
+
+
 def small_solves_match_cpu():
     """f64 Jacobi-CG on the card against the same solve on the host."""
     for data in (stencil_3d(12, points=27),
@@ -1071,7 +1447,8 @@ def main() -> int:
     assert Ab.strategy == "banded" and Ap.strategy == "packed"
 
     t0 = time.perf_counter()
-    Ai = gtt.Csr.from_data(build_matrix_data(ILU_CASE), dtype=np.float32)
+    d_ilu = build_matrix_data(ILU_CASE)
+    Ai = gtt.Csr.from_data(d_ilu, dtype=np.float32)
     torch.cuda.synchronize()
     say("setup_ilu", case=ILU_CASE, seconds=time.perf_counter() - t0,
         strategy=Ai.strategy, n=Ai.shape[0], nnz=Ai.nnz,
@@ -1097,19 +1474,30 @@ def main() -> int:
 
     kernels = [phase_kernel_a(Ab), phase_kernel_b(Ap),
                phase_kernel_c(M.l_solver, F.l_factor),
-               *phase_kernels_de(plan)]
+               *phase_kernels_de(plan), phase_kernel_f(Ab.shape[0])]
     del plan
 
     ilu_launches, ilu_iters, bare_iters = main_ilu(Ai, M)
     runs = [main_path("banded", Ab, "banded", "dia_spmv"),
             main_path("packed", Ap, "packed", "pell_spmv"),
             ilu_launches, ilut_launches,
-            main_ilut(Ai, Mt, ilu_iters, bare_iters), onehot_launches]
+            main_ilut(Ai, Mt, ilu_iters, bare_iters), onehot_launches,
+            main_gmres(Ab), *(main_gmres(Ab, s) for s in CB_STORAGES)]
+    gmres_tf32()
+
+    plans = attic_plans(d_ilu)
+    say("attic_plans", **{name: dict(p["stats"], plan_s=p["plan_s"])
+                          for name, p in plans.items()})
+    attic_launches, xs, ys = main_attic(plans, Ai.shape[1])
+    runs.append(attic_launches)
+    kernels += phase_kernels_gh(plans, xs, ys, Ai)
+    del plans, xs, ys
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in runs)
     small_solves_match_cpu()
     small_ilu_solves_match_cpu()
     small_ilut_match_cpu()
+    small_gmres_match_cpu()
 
     print(json.dumps({"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces",

@@ -27,3 +27,19 @@ def real_dtype(dtype) -> torch.dtype:
 def eps(dtype) -> float:
     """Machine epsilon of the *real* part of the value type."""
     return float(torch.finfo(real_dtype(dtype)).eps)
+
+
+_REDUCE_LADDER = {
+    torch.float64: torch.float32,
+    torch.float32: torch.bfloat16,
+    torch.bfloat16: torch.bfloat16,
+    torch.float16: torch.float16,
+    torch.complex128: torch.complex64,
+    torch.complex64: torch.complex64,
+}
+
+
+def reduce_precision(dtype) -> torch.dtype:
+    """One step down Ginkgo's precision ladder (f64->f32->bf16),
+    used by CB-GMRES's compressed Krylov basis."""
+    return _REDUCE_LADDER[as_torch_dtype(dtype)]

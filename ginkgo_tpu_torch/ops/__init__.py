@@ -10,4 +10,5 @@ from . import spmv_packed  # noqa: F401  (registers the packed tiers)
 from . import tri_banded  # noqa: F401  (registers the banded trisolve)
 from . import tri_packed  # noqa: F401  (registers the packed trisolve tiers)
 from . import pair_contract  # noqa: F401  (registers the pair contraction)
+from . import row_write  # noqa: F401  (registers the Krylov-basis row write)
 from .registry import lookup, register, use_tier, current_tier  # noqa: F401

@@ -40,7 +40,7 @@ def solve(A, b, x0=None, *, criteria=None, preconditioner=None,
     b_norm = compute_norm2(b2)
     r0_norm = compute_norm2(state["r"])
 
-    def step(s):
+    def step(s, active):
         rho = compute_conj_dot(s["rr"], s["r"])
         beta = safe_div(rho, s["rho"]) * safe_div(s["alpha"], s["omega"])
         p = s["r"] + beta[None, :] * (s["p"] - s["omega"][None, :] * s["v"])

@@ -38,7 +38,7 @@ def solve(A, b, x0=None, *, criteria=None, preconditioner=None,
     b_norm = compute_norm2(b2)
     r0_norm = compute_norm2(state["r"])
 
-    def step(s):
+    def step(s, active):
         z = M._apply(s["r"])
         rho = compute_conj_dot(s["r"], z)
         p = z + safe_div(rho, s["rho"])[None, :] * s["p"]

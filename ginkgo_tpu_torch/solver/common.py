@@ -51,11 +51,16 @@ def _tree_map(fn, *trees):
 
 
 def mask_cols(active, new, old):
-    """Freeze stopped columns: per-tensor where() with trailing-k broadcast."""
+    """Freeze stopped columns: per-tensor where() with trailing-k broadcast.
+
+    Global scalars (0-d tensors, host ints) advance regardless; a tensor
+    that is the same object in ``new`` and ``old`` was updated in place
+    (the Krylov basis) and is kept as it is: its writer keeps stopped
+    columns itself."""
 
     def sel(n, o):
-        if n.ndim == 0:
-            return n  # global scalars advance regardless
+        if not isinstance(n, torch.Tensor) or n.ndim == 0 or n is o:
+            return n
         m = active.reshape((1,) * (n.ndim - 1) + (-1,))
         return torch.where(m, n, o)
 
@@ -101,7 +106,8 @@ def run_iteration_loop(step_fn, make_check_args, state0, criterion: Criterion,
                        verify_retries: int = 2):
     """The host loop shared by the Krylov solvers.
 
-    step_fn(state) -> state'        one iteration (unmasked)
+    step_fn(state, active) -> state'  one iteration (unmasked); ``active``
+                                      is the (k,) mask of running columns
     make_check_args(state, it) -> CheckArgs
 
     ``restart_fn(state) -> state`` (optional) re-initializes the solver
@@ -115,12 +121,12 @@ def run_iteration_loop(step_fn, make_check_args, state0, criterion: Criterion,
     the host clock (``Time``) runs the plain loop without the audit and
     fires the per-iteration logger events, as in the JAX package.
 
-    ``trace=True`` (per-iteration residual history) is not ported yet.
+    ``trace=True`` (without a host-side criterion, which ignores it, as the
+    JAX package does) runs without the audit and returns the residual norm
+    of every trip: the JAX package's ``lax.scan`` always runs ``cap`` trips
+    and repeats the last norm once every column has stopped; this loop
+    stops there and pads the (cap + 1, k) history with its last row.
     """
-    if trace:
-        raise NotImplementedError(
-            "trace=True (the per-iteration residual history scan of "
-            "ginkgo_tpu/solver/common.py:226-234) is not ported yet")
     criterion = as_criterion(criterion)
     crit_state = criterion.init(b, r0_norm, b_norm)
     cap = trip_cap if trip_cap is not None else (
@@ -140,7 +146,7 @@ def run_iteration_loop(step_fn, make_check_args, state0, criterion: Criterion,
     host_side = has_host_side(criterion)
 
     def body(carry):
-        new_state = step_fn(carry["state"])
+        new_state = step_fn(carry["state"], carry["active"])
         state = (new_state if single_col else
                  mask_cols(carry["active"], new_state, carry["state"]))
         it = carry["it"] + 1
@@ -160,8 +166,18 @@ def run_iteration_loop(step_fn, make_check_args, state0, criterion: Criterion,
             carry = body(carry)
         return carry
 
-    if restart_fn is None or host_side:
+    if host_side or (restart_fn is None and not trace):
         return run(carry0), None
+    if trace:
+        history = [args0.get_residual_norm()]
+        carry = carry0
+        while carry["it"] < cap and bool(carry["active"].any()):
+            carry = body(carry)
+            history.append(make_check_args(carry["state"], carry["it"])
+                           .get_residual_norm())
+        history = torch.stack(history)
+        pad = history[-1:].expand(cap + 1 - history.shape[0], k)
+        return carry, torch.cat([history, pad])
 
     def audit(oc):
         c = run(oc["carry"])
@@ -186,6 +202,110 @@ def run_iteration_loop(step_fn, make_check_args, state0, criterion: Criterion,
     while oc["carry"]["it"] < cap and bool(oc["carry"]["active"].any()):
         oc = audit(oc)
     return dict(oc["carry"], stagnated=oc["stagnated"]), None
+
+
+def run_restarted_loop(inner_step, cycle_done, restart_fn, make_check_args,
+                       state0, criterion: Criterion, b, r0_norm, b_norm,
+                       trip_cap: int | None = None, verify_retries: int = 2):
+    """Two-level host loop for restarted solvers (GMRES-style).
+
+    inner_step(state, active) -> state'   one inner step (unmasked)
+    cycle_done(state) -> bool             the cycle is full (a host value)
+    restart_fn(state, sel) -> state'      restart from the TRUE residual
+                                          r = b - A x for the columns of sel
+
+    The inner loop runs only ``inner_step`` and the criterion check, one
+    host read of the active mask a step; ``restart_fn`` runs in the outer
+    loop, once per cycle.  The masks hand the solver the columns it works
+    on, so a buffer it updates in place (the Krylov basis) can keep the
+    stopped columns itself.
+
+    CONVERGENCE IS VERIFIED ON THE TRUE RESIDUAL.  Inner steps stop columns
+    on the solver's recurrent estimate (GMRES' ``|g[j+1]|``); the restart
+    recomputes the residual, and a column whose estimate fired is
+    re-checked against it before ``converged`` becomes final.  On a miss
+    the column is reactivated for another cycle (up to ``verify_retries``
+    times); when the retries run out it is reported ``stagnated``.
+
+    Iteration counts tick per inner step only (restarts are free), which
+    matches the reference's counting.
+    """
+    criterion = as_criterion(criterion)
+    crit_state = criterion.init(b, r0_norm, b_norm)
+    cap = trip_cap if trip_cap is not None else (
+        criterion.max_trip_count() or DEFAULT_TRIP_CAP)
+    k = b.shape[1]
+    single_col = k == 1
+    zeros = torch.zeros((k,), dtype=torch.int32, device=b.device)
+
+    # state0 comes fresh from the solver's restart, so the initial check
+    # runs on the TRUE residual: columns converging here are verified.
+    args0 = make_check_args(state0, 0)
+    stop0, conv0, crit_state = criterion.check(crit_state, args0)
+    carry = dict(state=state0, crit=crit_state, it=0, active=~stop0,
+                 converged=conv0, verified=conv0, retries=zeros,
+                 stagnated=torch.zeros((k,), dtype=torch.bool,
+                                       device=b.device),
+                 iters=zeros)
+
+    def inner_body(carry):
+        new_state = inner_step(carry["state"], carry["active"])
+        state = (new_state if single_col else
+                 mask_cols(carry["active"], new_state, carry["state"]))
+        it = carry["it"] + 1
+        args = make_check_args(state, it)
+        stop, conv, crit = criterion.check(carry["crit"], args)
+        newly = carry["active"] & stop
+        return dict(
+            carry, state=state, crit=crit, it=it,
+            active=carry["active"] & ~stop,
+            # provisional: estimate-based, audited at the next restart
+            converged=carry["converged"] | (newly & conv),
+            iters=carry["iters"] + carry["active"].to(torch.int32))
+
+    def outer_body(carry):
+        while (carry["it"] < cap and not cycle_done(carry["state"])
+               and bool(carry["active"].any())):
+            carry = inner_body(carry)
+        # columns whose estimate-based stop awaits a true-residual audit
+        pending = carry["converged"] & ~carry["verified"]
+        sel = carry["active"] | pending
+        state = restart_fn(carry["state"], sel)
+        if not single_col:
+            state = mask_cols(sel, state, carry["state"])
+        # the restart recomputes r = b - A x, so this check is on the TRUE
+        # residual; it does not tick `it` (restarts are free)
+        args = make_check_args(state, carry["it"])
+        stop, conv, crit = criterion.check(carry["crit"], args)
+        hit = stop & conv
+        # active columns stopping at the boundary are verified by
+        # construction (their stop IS the true-residual check)
+        newly = carry["active"] & stop
+        converged = carry["converged"] | (newly & conv)
+        verified = carry["verified"] | (newly & conv)
+        active = carry["active"] & ~stop
+        # pending columns: confirm, retry another cycle, or give up
+        ok = pending & hit
+        miss = pending & ~hit
+        give_up = miss & (carry["retries"] >= verify_retries)
+        redo = miss & ~give_up
+        return dict(
+            state=state, crit=crit, it=carry["it"],
+            active=active | redo,
+            converged=converged & ~miss,
+            verified=verified | ok,
+            retries=carry["retries"] + redo.to(torch.int32),
+            stagnated=carry["stagnated"] | give_up,
+            iters=carry["iters"])
+
+    def outer_cond(carry):
+        pending = carry["converged"] & ~carry["verified"]
+        work = carry["active"].any() if carry["it"] < cap else False
+        return bool(work | pending.any())     # one host read
+
+    while outer_cond(carry):
+        carry = outer_body(carry)
+    return carry, None
 
 
 def _log_iteration(it, stop, conv):

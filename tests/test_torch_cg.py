@@ -148,9 +148,23 @@ def test_factory_surface_and_block_jacobi_raises():
     assert float(r.norm()) < 1e-8 * A.shape[0] ** 0.5
     with pytest.raises(NotImplementedError, match="gauss_jordan"):
         Jacobi(max_block_size=4)
-    with pytest.raises(NotImplementedError, match="trace"):
-        Cg.solve(A, torch.ones(A.shape[0], dtype=torch.float64),
-                 criteria=Iteration(5), trace=True)
+    # trace=True: the residual norm of every trip, shaped as the
+    # reference's fixed-length scan (cap + 1, k), with equal iterations
+    b = _rhs(A.shape[0], seed=3)
+    Aj = gt.Csr.from_data(gt.MatrixData(d.shape, d.row_idx, d.col_idx,
+                                        d.values))
+    rj = JCg.solve(Aj, jnp.asarray(b), criteria=JIteration(80)
+                   | JResidualNorm(1e-10), preconditioner=JJacobi(),
+                   trace=True)
+    rt = Cg.solve(A, torch.from_numpy(b), criteria=Iteration(80)
+                  | ResidualNorm(1e-10), preconditioner=Jacobi(), trace=True)
+    hj = np.asarray(rj.resnorm_history)
+    assert rt.resnorm_history.shape == hj.shape == (81, 3)
+    np.testing.assert_allclose(rt.resnorm_history.numpy(), hj, rtol=1e-9,
+                               atol=1e-12 * hj.max())
+    np.testing.assert_array_equal(rt.iterations.numpy(),
+                                  np.asarray(rj.iterations))
+    assert int(rt.iterations.max()) < 80
 
 
 def test_time_criterion_runs_the_host_loop_like_jax():

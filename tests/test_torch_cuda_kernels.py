@@ -16,10 +16,12 @@ import torch
 import ginkgo_tpu_torch as gtt
 from ginkgo_tpu_torch.benchmark import build_matrix_data
 from ginkgo_tpu_torch.factorization import ParIct, ParIlu, ParIlut
-from ginkgo_tpu_torch.ops import (pair_contract, registry, spmv_banded,
-                                  spmv_packed, tri_inv, tri_packed)
+from ginkgo_tpu_torch.ops import (pair_contract, registry, row_write,
+                                  spmv_banded, spmv_packed, tri_inv,
+                                  tri_packed)
+from ginkgo_tpu_torch.ops.attic import spmv_chunked, spmv_windowed
 from ginkgo_tpu_torch.preconditioner import Ilu, Jacobi
-from ginkgo_tpu_torch.solver import Bicgstab, Cg
+from ginkgo_tpu_torch.solver import Bicgstab, CbGmres, Cg
 from ginkgo_tpu_torch.stop import Iteration, ResidualNorm
 from ginkgo_tpu_torch.utils.generators import (permute_locally,
                                                random_banded,
@@ -387,3 +389,134 @@ def test_packed_parilut_on_card_matches_host(dev, case):
         assert np.array_equal(g.col_idx, c.col_idx)
         np.testing.assert_allclose(g.values, c.values, rtol=1e-10,
                                    atol=1e-10 * np.abs(c.values).max())
+
+
+# -- kernel F: the in-place Krylov-basis row write -----------------------------
+ROW_DTYPES = [torch.float32, torch.float64, torch.bfloat16, torch.float16,
+              torch.int16, torch.int8]
+
+
+def _random_rows(shape, dtype, seed):
+    vals = np.random.default_rng(seed).standard_normal(shape)
+    if not dtype.is_floating_point:
+        vals = np.clip(np.round(vals * 40), -120, 120)
+    return torch.from_numpy(vals).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(13, 1003), (13, 1003, 3), (9, 4096)],
+                         ids=["2d_ragged", "3d", "2d_aligned"])
+def test_row_write_kernel_matches_copy(dev, shape, dtype):
+    """Bit for bit the plain ``copy_``; other rows untouched; the store is
+    written in place and nothing is allocated."""
+    store = _random_rows(shape, dtype, 0).to(dev)
+    want = store.clone()
+    rows = [_random_rows(shape[1:], dtype, i + 1).to(dev) for i in range(3)]
+    ptr, mem = store.data_ptr(), torch.cuda.memory_allocated()
+    before = row_write.row_write_cuda.launches
+    for i, row in zip((0, 5, shape[0] - 1), rows):
+        assert row_write.row_write_cuda(store, i, row) is store
+        want[i].copy_(row)
+    torch.cuda.synchronize()
+    assert row_write.row_write_cuda.launches - before == 3
+    assert store.data_ptr() == ptr
+    assert torch.cuda.memory_allocated() <= mem
+    assert torch.equal(store.view(torch.uint8), want.view(torch.uint8))
+
+
+def test_row_write_wrapper_raises_instead_of_falling_back(dev):
+    store = torch.zeros((4, 256), dtype=torch.float32, device=dev)
+    row = torch.ones(256, dtype=torch.float32, device=dev)
+    with pytest.raises(TypeError, match="cast the row"):
+        row_write.row_write_cuda(store, 1, row.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        row_write.row_write_cuda(store.t().contiguous().t(), 1, row)
+    with pytest.raises(ValueError, match="not a row"):
+        row_write.row_write_cuda(store, 1, row[:-1])
+    with pytest.raises(IndexError):
+        row_write.row_write_cuda(store, 4, row)
+    with pytest.raises(ValueError, match="one device"):
+        row_write.row_write_cuda(store, 1, row.cpu())
+    assert registry.lookup("row_write", dev) is row_write.row_write_cuda
+
+
+# -- kernels G and H: the attic SpMV generations ---------------------------------
+ATTIC = {"windowed": (spmv_windowed, "plan_windowed_layout", "well_spmv",
+                      dict(h_quantile=0.5)),
+         "chunked": (spmv_chunked, "plan_chunked_layout", "cell_spmv",
+                     dict(wv_cap=2))}
+
+
+def _attic_plan(kind, dev, capped):
+    mod, planner, name, cap = ATTIC[kind]
+    d = build_matrix_data({"fem": 4096, "offscale": 1.2})
+    vals = d.values.astype(np.float32)
+    layout, tail, stats = getattr(mod, planner)(d, vals,
+                                                **(cap if capped else {}))
+    assert stats["tail_nnz"] > 0 or not capped
+    return mod, name, mod.upload(layout, tail, dev), d
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 9])
+@pytest.mark.parametrize("capped", [False, True], ids=["", "capped"])
+@pytest.mark.parametrize("kind", list(ATTIC))
+def test_attic_kernels_match_plain(dev, kind, capped, k):
+    mod, name, t, d = _attic_plan(kind, dev, capped)
+    kernel = getattr(mod, f"{name}_cuda")
+    args = [t[key] for key in mod.ARRAYS]
+    x = torch.randn((d.shape[1], k), dtype=torch.float32, device=dev)
+    before = kernel.launches
+    y = kernel(*args, t["meta"], x)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == -(-k // 8)
+    want = getattr(mod, f"{name}_reference")(*args, t["meta"], x)
+    assert _rel_err(y, want) <= 1e-5
+    # the apply (kernel plus the COO tail) against an f64 product
+    y = getattr(mod, f"{name}_apply")(t, x)
+    A = torch.sparse_coo_tensor(
+        np.stack([d.row_idx, d.col_idx]),
+        d.values.astype(np.float32).astype(np.float64), d.shape).to(dev)
+    assert _rel_err(y, A @ x.double()) <= 1e-5
+
+
+def test_attic_wrappers_raise_instead_of_falling_back(dev):
+    for kind in ATTIC:
+        mod, name, t, d = _attic_plan(kind, dev, False)
+        kernel = getattr(mod, f"{name}_cuda")
+        args = [t[key] for key in mod.ARRAYS]
+        x = torch.ones((d.shape[1], 2), dtype=torch.float32, device=dev)
+        with pytest.raises(TypeError):
+            kernel(*args, t["meta"], x.double())
+        with pytest.raises(TypeError):
+            kernel(args[0].double(), *args[1:], t["meta"], x)
+        with pytest.raises(ValueError):
+            kernel(*args, t["meta"], x[:-1])
+        with pytest.raises(ValueError, match="contiguous"):
+            kernel(*args, t["meta"], x.t().contiguous().t())
+        with pytest.raises(ValueError, match="one device"):
+            kernel(args[0].cpu(), *args[1:], t["meta"], x)
+        assert registry.lookup(name, dev) is kernel
+
+
+# -- GMRES on the card against the host ------------------------------------------
+@pytest.mark.parametrize("storage", ["keep", "reduce1", "integer"])
+def test_gmres_on_card_matches_host(dev, storage):
+    """f64, two right-hand sides, restarts (krylov_dim 20): the card (kernel
+    F for the basis writes, kernel B for the SpMV) against the host."""
+    data = build_matrix_data({"fem": 4096, "offscale": 1.2})
+    b = np.random.default_rng(4).standard_normal((4096, 2))
+    out = []
+    for device in (dev, torch.device("cpu")):
+        A = gtt.Csr.from_data(data, device=device)
+        before = row_write.row_write_cuda.launches
+        res = CbGmres.solve(A, torch.from_numpy(b).to(device),
+                            criteria=Iteration(400) | ResidualNorm(1e-10),
+                            krylov_dim=20, storage_precision=storage)
+        out.append((res, row_write.row_write_cuda.launches - before))
+    (rg, ng), (rc, nc) = out
+    assert ng > 0 and nc == 0
+    assert bool(rg.converged.all())
+    assert torch.equal(rg.iterations.cpu(), rc.iterations)
+    assert torch.equal(rg.converged.cpu(), rc.converged)
+    assert torch.equal(rg.stagnated.cpu(), rc.stagnated)
+    torch.testing.assert_close(rg.x.cpu(), rc.x, rtol=1e-10, atol=1e-10)
