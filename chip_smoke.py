@@ -16,8 +16,11 @@ exits non-zero:
    small random banded matrices with k in {1, 3, 8, 9} in f32, f64 and
    bf16/f16 storage, and the 27-point stencil at nx=160 with k=1, timed
    beside its byte bound, its plain version and cuSPARSE;
-4. kernel B (packed windowed-ELL SpMV), the same on small matrices and on
-   the locally permuted 1,048,576-row stencil;
+4. kernel B (packed windowed-ELL SpMV: ``sell_spmv.cu`` over the packed
+   slab's compact stream), the same on small matrices in every type pair
+   and, against the stream's plain version and the slab's, on the locally
+   permuted 1,048,576-row stencil and on the ILU system's FEM matrix, with
+   the stream's slots, pad ratio and repack milliseconds beside the slab's;
 5. kernel C (packed exact triangular solve), the same on small random
    lower and upper factors (f32 and f64 right-hand sides) and on the L
    factor of the ILU system below, timed beside its byte bound, its plain
@@ -27,7 +30,9 @@ exits non-zero:
 6. main path, banded: ``Csr.from_data`` of the nx=160 stencil on the card
    (``banded`` layout), Jacobi-CG to the tolerance below, with kernel A's
    launch count and the true residual recomputed independently;
-7. main path, packed: the same on the permuted matrix (``packed`` layout);
+7. main path, packed: the same on the permuted matrix (``packed`` layout),
+   in the iterations the slab kernel took (``SLAB_ITERATIONS``, as the
+   ILU and ILUT paths below);
 8. main path, ILU: the 262,144-row unstructured FEM matrix of the
    benchmark cases (``packed`` layout), ``Ilu(ParIlu(5))`` with both
    triangular solves on kernel C, BiCGSTAB to ``ResidualNorm(1e-5)`` with
@@ -60,11 +65,13 @@ exits non-zero:
    a true residual under 1e-3, with kernel A counted and kernel F's
    launches equal to the Arnoldi steps plus the ``restart_fields`` calls;
 16. GMRES with TF32 turned on by the caller: the same iterations and x;
-17. kernels G and H (the attic windowed-ELL and chunk-ELL SpMVs): planned
-   on the ILU system's matrix, applied with their COO tails through the
+17. kernels G and H (the attic windowed-ELL and chunk-ELL SpMVs; H is
+   ``sell_spmv.cu`` over the chunk-ELL slab's compact stream): planned on
+   the ILU system's matrix, applied with their COO tails through the
    attic's own apply (the counted path), held against their plain
-   versions, an f64 product and small random matrices, and timed beside
-   their byte bounds, their plain versions and cuSPARSE;
+   versions (for H the stream's and the slab's), an f64 product and small
+   random matrices, and timed beside their byte bounds, their plain
+   versions and cuSPARSE;
 18. small GMRES solves on the card agree with the port's CPU run: f64,
    ``keep`` and ``integer`` bases, two right-hand sides.
 
@@ -93,8 +100,9 @@ from ginkgo_tpu_torch import native
 from ginkgo_tpu_torch.benchmark import build_matrix_data
 from ginkgo_tpu_torch.factorization import (ParIct, ParIlu, ParIlut,
                                             par_ilut_packed)
-from ginkgo_tpu_torch.ops import (_cuda, pair_contract, row_write,
-                                  spmv_banded, spmv_packed, tri_packed)
+from ginkgo_tpu_torch.ops import (_cuda, pair_contract, registry,
+                                  row_write, spmv_banded, spmv_packed,
+                                  spmv_sell, tri_packed)
 from ginkgo_tpu_torch.ops.attic import spmv_chunked, spmv_windowed
 from ginkgo_tpu_torch.ops.spmv import coo_spmv
 from ginkgo_tpu_torch.preconditioner import Ic, Ilu, Jacobi
@@ -149,6 +157,10 @@ CB_STORAGES = ("reduce1", "integer")
 # kernels G and H against their plain versions and an f64 product,
 # relative to max |y|: f32 sums in another order
 ATTIC_TOL = 1e-5
+# iterations of the solves that run kernel B, as the kernel over the
+# padded slab took them on the card: the compact stream sums each row in
+# the slab's order and only drops its zero lanes, so they must not move
+SLAB_ITERATIONS = {"packed": 125, "ilu": 5, "ilut": 4}
 DEV = torch.device("cuda")
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 1e-5,
        torch.float16: 1e-5}
@@ -286,10 +298,14 @@ def phase_kernel_a(A):
     lib, ylib = library_ms(A, x, 20)
     lib_err, _ = rel_err(ylib, want)
     D = len(offsets)
-    nbytes = D * n * A.diag_values.element_size() + 2 * n * 4
-    bms, by = bound(nbytes, 2 * D * n)
-    say("kernel_a", n=n, D=D, k=1, ms=ms, plain_ms=plain, library_ms=lib,
-        bound_ms=bms, bound_by=by, bytes=nbytes,
+    # the entries the function needs: the band's nonzero values (its
+    # offsets are static), x read once and y written once
+    entries = int((A.diag_values != 0).sum())
+    nbytes = entries * A.diag_values.element_size() + 2 * n * 4
+    bms, by = bound(nbytes, 2 * entries)
+    say("kernel_a", n=n, D=D, k=1, entries=entries, band_slots=D * n, ms=ms,
+        plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+        bytes=nbytes,
         effective_GBps=nbytes / (ms * 1e-3) / 1e9,
         max_abs_err=err * scale, max_rel_err=err, library_rel_err=lib_err)
     return dict(name="dia_spmv", route="cuda",
@@ -300,24 +316,117 @@ def phase_kernel_a(A):
 
 
 # -- kernel B -----------------------------------------------------------------
-def pell_args(A, vdtype):
-    return (A.pell_vals.to(vdtype), A.pell_idx, A.pell_qw, A.pell_xbase,
-            A.pell_meta)
+def card_slab(A):
+    """A copy on the card of the packed slab that ``A`` keeps on the host
+    (the oracle's input)."""
+    return [t.to(DEV) for t in (A.pell_vals, A.pell_idx, A.pell_qw,
+                                A.pell_xbase)]
 
 
-def check_pell(args, x):
-    y = spmv_packed.pell_spmv_cuda(*args, x)
+def packed_stream(A, vdtype):
+    """The packed slab of ``A`` on the card with its values in ``vdtype``,
+    and that slab's compact stream."""
+    slab = card_slab(A)
+    slab[0] = slab[0].to(vdtype)
+    return slab, spmv_sell.sell_from_packed(*slab, A.pell_meta)
+
+
+def check_stream_kernel(wrapper, sell, smeta, slab_plain, x):
+    """One call of a wrapper of ``sell_spmv.cu`` against the stream's plain
+    version and the slab's (``slab_plain(x)``); returns the larger
+    relative error."""
+    y = wrapper(sell, smeta, x)
     torch.cuda.synchronize()
-    want = spmv_packed.pell_spmv_reference(*args, x)
+    want = spmv_sell.sell_spmv_reference(sell, smeta, x)
     assert y.shape == want.shape and y.dtype == x.dtype
     assert bool(torch.isfinite(y).all())
-    err, _ = rel_err(y, want)
-    tol = TOL[args[0].dtype]
+    err = max(rel_err(y, want)[0], rel_err(y, slab_plain(x))[0])
+    tol = TOL[sell["sv"].dtype]
     if not err <= tol:
-        raise AssertionError(f"pell_spmv kernel disagrees: rel err {err:.3e}"
-                             f" > {tol} (vals {args[0].dtype}, x {x.dtype},"
-                             f" shape {tuple(x.shape)})")
+        raise AssertionError(f"{wrapper.__name__} disagrees: rel err "
+                             f"{err:.3e} > {tol} (values "
+                             f"{sell['sv'].dtype}, x {x.dtype}, shape "
+                             f"{tuple(x.shape)})")
     return err
+
+
+def repack(build, slab, meta, built):
+    """Milliseconds of one more build of the compact stream on the card,
+    which must give the stream built at set-up bit for bit."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sell, smeta = build(*slab, meta)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if smeta != built[1] or not all(torch.equal(sell[key], built[0][key])
+                                    for key in spmv_sell.STREAM):
+        raise AssertionError("a second build of the compact stream differs")
+    return ms
+
+
+def stream_fields(sell, smeta, slab):
+    """Entries, slots and bytes of a compact stream beside its slab's."""
+    entries = dict(smeta)["entries"]
+    slots = sell["sv"].numel()
+    slab_slots = slab[0].numel()
+    stream_bytes = sum(sell[key].numel() * sell[key].element_size()
+                       for key in ("sv", "sc", "sp"))
+    slab_bytes = sum(t.numel() * t.element_size() for t in slab[:3])
+    return dict(entries=entries, stream_slots=slots,
+                stream_pad_ratio=slots / entries, slab_slots=slab_slots,
+                slab_pad_ratio=slab_slots / entries,
+                stream_device_bytes=stream_bytes, slab_bytes=slab_bytes,
+                bytes_per_launch_ratio=slab_bytes / stream_bytes)
+
+
+def stream_needed_bytes(entries, value_size, n, m):
+    """Bytes the ELL part needs at least: each kept entry's value and int16
+    column (the slab's and the slices' padding are the layout's, not the
+    function's), x read once and y written once (f32)."""
+    return entries * (value_size + 2) + (m + n) * 4
+
+
+def time_packed(label, A):
+    """Kernel B at k = 1 on ``A``'s stream: checked against both plain
+    versions, timed beside its bound, the plain version and cuSPARSE."""
+    n, m = A.shape
+    if A.pell_vals.device.type != "cpu":
+        raise AssertionError("the packed slab should stay on the host")
+    slab = card_slab(A)
+    repack_ms = repack(spmv_sell.sell_from_packed, slab, A.pell_meta,
+                       (A.sell, A.sell_meta))
+    sell, smeta = A.sell, A.sell_meta
+    x = torch.randn((m, 1), dtype=torch.float32, device=DEV)
+    y = spmv_packed.pell_spmv_cuda(sell, smeta, x)
+    want = spmv_sell.sell_spmv_reference(sell, smeta, x)
+    err, scale = rel_err(y, want)
+    slab_err, _ = rel_err(y, spmv_packed.pell_spmv_reference(
+        *slab, A.pell_meta, x))
+    if not max(err, slab_err) <= TOL[torch.float32]:
+        raise AssertionError(f"pell_spmv kernel disagrees on the {label} "
+                             f"matrix: rel err {err:.3e} to the stream's "
+                             f"plain version, {slab_err:.3e} to the slab's")
+    ms = time_ms(lambda: spmv_packed.pell_spmv_cuda(sell, smeta, x), 50,
+                 queue_ahead=True)
+    plain = time_ms(lambda: spmv_sell.sell_spmv_reference(sell, smeta, x), 5)
+    lib, ylib = library_ms(A, x, 20)
+    lib_err, _ = rel_err(ylib, want)
+    fields = stream_fields(sell, smeta, slab)
+    nbytes = stream_needed_bytes(fields["entries"],
+                                 A.pell_vals.element_size(), n, m)
+    bms, by = bound(nbytes, 2 * fields["entries"])
+    meta = dict(A.pell_meta)
+    say("kernel_b", matrix=label, n=n, Wv=meta["Wv"], XW=meta["XW"], k=1,
+        nnz=A.nnz, **fields, repack_ms=repack_ms, ms=ms, plain_ms=plain,
+        library_ms=lib, bound_ms=bms, bound_by=by, bytes=nbytes,
+        effective_GBps=nbytes / (ms * 1e-3) / 1e9,
+        max_abs_err=err * scale, max_rel_err=err, slab_rel_err=slab_err,
+        library_rel_err=lib_err)
+    return dict(name="pell_spmv", route="cuda",
+                source="ginkgo_tpu_torch/ops/csrc/sell_spmv.cu",
+                replaces="ginkgo_tpu/ops/spmv_packed.py:235",
+                max_abs_err=err * scale, ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=lib)
 
 
 def small_packed_matrices():
@@ -337,7 +446,9 @@ def small_packed_matrices():
                          g.standard_normal(rows.size))
 
 
-def phase_kernel_b(A):
+def phase_kernel_b(A, A_fem):
+    """Kernel B on small matrices in every type pair, then on the packed
+    main-path matrix (the ``kernels`` line) and on the FEM matrix."""
     worst = {}
     for data in small_packed_matrices():
         S = gtt.Csr.from_data(data, strategy="packed")
@@ -346,43 +457,18 @@ def phase_kernel_b(A):
                        torch.float16):
             xdtype = torch.float64 if vdtype == torch.float64 \
                 else torch.float32
-            args = pell_args(S, vdtype)
+            slab, (sell, smeta) = packed_stream(S, vdtype)
             for k in (1, 3, 8, 9):
                 x = torch.randn((S.shape[1], k), dtype=xdtype, device=DEV)
-                err = check_pell(args, x)
+                err = check_stream_kernel(
+                    spmv_packed.pell_spmv_cuda, sell, smeta,
+                    lambda x: spmv_packed.pell_spmv_reference(
+                        *slab, S.pell_meta, x), x)
                 worst[str(vdtype)] = max(worst.get(str(vdtype), 0.0), err)
     say("kernel_b_small", max_rel_err=worst)
-
-    n, m = A.shape
-    args = pell_args(A, torch.float32)
-    x = torch.randn((m, 1), dtype=torch.float32, device=DEV)
-    y = spmv_packed.pell_spmv_cuda(*args, x)
-    want = spmv_packed.pell_spmv_reference(*args, x)
-    err, scale = rel_err(y, want)
-    if not err <= TOL[torch.float32]:
-        raise AssertionError(f"pell_spmv kernel disagrees on the packed "
-                             f"main-path matrix: rel err {err:.3e}")
-    ms = time_ms(lambda: spmv_packed.pell_spmv_cuda(*args, x), 50,
-                 queue_ahead=True)
-    plain = time_ms(lambda: spmv_packed.pell_spmv_reference(*args, x), 5)
-    lib, ylib = library_ms(A, x, 20)
-    lib_err, _ = rel_err(ylib, want)
-    meta = dict(A.pell_meta)
-    slots = A.pell_vals.numel()
-    nbytes = (slots * (A.pell_vals.element_size() + 2)
-              + A.pell_qw.numel() * 4 + A.pell_xbase.numel() * 4
-              + m * 4 + n * 4)
-    bms, by = bound(nbytes, 2 * slots)
-    say("kernel_b", n=n, Wv=meta["Wv"], XW=meta["XW"], k=1, slots=slots,
-        nnz=A.nnz, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-        bound_by=by, bytes=nbytes,
-        effective_GBps=nbytes / (ms * 1e-3) / 1e9,
-        max_abs_err=err * scale, max_rel_err=err, library_rel_err=lib_err)
-    return dict(name="pell_spmv", route="cuda",
-                source="ginkgo_tpu_torch/ops/csrc/pell_spmv.cu",
-                replaces="ginkgo_tpu/ops/spmv_packed.py:235",
-                max_abs_err=err * scale, ms=ms, plain_ms=plain,
-                bound_ms=bms, bound_by=by, library_ms=lib)
+    out = time_packed("packed", A)
+    time_packed("fem", A_fem)
+    return out
 
 
 # -- kernel C -----------------------------------------------------------------
@@ -591,10 +677,18 @@ def main_path(label, A, strategy, kernel):
         raise AssertionError(f"{label}: the solve never launched {kernel}")
     if not bool(res.converged.all()):
         raise AssertionError(f"{label}: CG did not converge")
+    check_iterations(label, iters)
     if not (np.isfinite(true_rel) and true_rel <= TRUE_RESIDUAL_LIMIT):
         raise AssertionError(f"{label}: true relative residual {true_rel:.3e}"
                              f" > {TRUE_RESIDUAL_LIMIT}")
     return launches
+
+
+def check_iterations(label, iters):
+    want = SLAB_ITERATIONS.get(label)
+    if want is not None and iters != want:
+        raise AssertionError(f"{label}: {iters} iterations, where the slab "
+                             f"kernel took {want}")
 
 
 def ilu_solve(A, M):
@@ -674,6 +768,7 @@ def main_ilu(A, M):
         unpreconditioned_true_rel_residual=true_rel_residual(A, b, bare.x),
         **ilu_breakdown(A, M))
     check_ilu_solve("ILU path", res, launches, true_rel, bare_iters)
+    check_iterations("ilu", iters)
     return launches, iters, bare_iters
 
 
@@ -689,6 +784,7 @@ def main_ilut(A, M, parilu_iters, bare_iters):
         parilu_iterations=parilu_iters,
         unpreconditioned_iterations=bare_iters, **ilu_breakdown(A, M))
     check_ilu_solve("ILUT path", res, launches, true_rel, bare_iters)
+    check_iterations("ilut", iters)
     return launches
 
 
@@ -1296,29 +1392,37 @@ def main_attic(plans, m):
     return launches, xs, ys
 
 
-def attic_args(p):
-    return [p["t"][key] for key in p["mod"].ARRAYS] + [p["t"]["meta"]]
+def kernel_args(name, t):
+    """The layout arguments of a kernel's wrapper: G's slab, H's compact
+    stream."""
+    if name == "well_spmv":
+        return [t[key] for key in spmv_windowed.ARRAYS] + [t["meta"]]
+    return [t["sell"], t["sell_meta"]]
+
+
+def slab_plain(name, t):
+    """The slab's own plain version, as a function of x."""
+    mod = ATTIC[name][0]
+    fn = getattr(mod, f"{name}_reference")
+    return lambda x: fn(*(t[key] for key in mod.ARRAYS), t["meta"], x)
 
 
 def attic_needed_bytes(name, p, n, m):
     """Bytes the ELL part needs at least: each kept entry's f32 value and
     int16 index (6 B; padding slots are the layout's, not the function's),
-    the per-superblock window bases, for H the chunk id of each vreg that
-    holds an entry (G's q0 serves the TPU's sublane select only), x read
-    once and y written once."""
-    t = p["t"]
-    nbytes = p["stats"]["ell_nnz"] * 6 + t["xbase_row"].numel() * 4 \
-        + (m + n) * 4
+    x read once and y written once; for G also the per-superblock window
+    bases (its q0 serves the TPU's sublane select only).  H reads the
+    compact stream, which needs no more than kernel B's."""
     if name == "cell_spmv":
-        live = int((t["vals"].reshape(t["qid"].numel(), -1) != 0).any(
-            dim=1).sum())
-        nbytes += live * 4
-    return nbytes
+        return stream_needed_bytes(p["stats"]["ell_nnz"], 4, n, m)
+    return p["stats"]["ell_nnz"] * 6 + p["t"]["xbase_row"].numel() * 4 \
+        + (m + n) * 4
 
 
 def phase_kernels_gh(plans, xs, ys, A):
     """Kernels G and H on the ILU system's matrix and on small random
-    matrices, against their plain versions and an f64 product."""
+    matrices, against their plain versions (for H, the stream's and the
+    slab's) and an f64 product."""
     n, m = A.shape
     d64 = A.values.double()
     want = [coo_spmv(A.row_idx, A.col_idx, d64, x.double(), n) for x in xs]
@@ -1326,29 +1430,32 @@ def phase_kernels_gh(plans, xs, ys, A):
                    for data in small_packed_matrices()]
     out = []
     for name, p in plans.items():
-        mod, args = p["mod"], attic_args(p)
+        mod, t = p["mod"], p["t"]
+        args = kernel_args(name, t)
         kernel = getattr(mod, f"{name}_cuda")
-        plain_fn = getattr(mod, f"{name}_reference")
+        plain_fn = registry.lookup(name, "cpu")
+        slab_fn = slab_plain(name, t)
         worst = 0.0
         for x, y, w in zip(xs, ys[name], want):
-            plain = mod.add_tail(plain_fn(*args, x), p["t"]["tail"], x)
-            e_plain, _ = rel_err(y, plain)
-            e_f64, _ = rel_err(y, w)
-            worst = max(worst, e_plain, e_f64)
-            if not (e_plain <= ATTIC_TOL and e_f64 <= ATTIC_TOL):
+            errs = [rel_err(y, w)[0]] + [
+                rel_err(y, mod.add_tail(f(x), t["tail"], x))[0]
+                for f in (lambda x: plain_fn(*args, x), slab_fn)]
+            worst = max(worst, *errs)
+            if not max(errs) <= ATTIC_TOL:
                 raise AssertionError(f"{name} disagrees at k={x.shape[1]}: "
-                                     f"rel err {e_plain:.3e} to its plain "
-                                     f"version, {e_f64:.3e} to the f64 "
-                                     f"product")
+                                     f"rel errs {errs} to the f64 product "
+                                     f"and the plain versions")
         small = 0.0
         for data, splans in small_plans:
-            sargs = attic_args(splans[name])
+            st = splans[name]["t"]
+            sargs = kernel_args(name, st)
             for k in (1, 3, 8, 9):
                 x = torch.randn((data.shape[1], k), dtype=torch.float32,
                                 device=DEV)
                 y = kernel(*sargs, x)
                 torch.cuda.synchronize()
-                e, _ = rel_err(y, plain_fn(*sargs, x))
+                e = max(rel_err(y, plain_fn(*sargs, x))[0],
+                        rel_err(y, slab_plain(name, st)(x))[0])
                 small = max(small, e)
                 if not e <= ATTIC_TOL:
                     raise AssertionError(f"{name} disagrees on a small "
@@ -1361,15 +1468,23 @@ def phase_kernels_gh(plans, xs, ys, A):
         lib, _ = library_ms(A, x, 20)
         nbytes = attic_needed_bytes(name, p, n, m)
         bms, by = bound(nbytes, 2 * p["stats"]["ell_nnz"])
+        extra = {}
+        if name == "cell_spmv":
+            slab = [t[key] for key in mod.ARRAYS]
+            extra = dict(**stream_fields(t["sell"], t["sell_meta"], slab),
+                         repack_ms=repack(spmv_sell.sell_from_chunked, slab,
+                                          t["meta"],
+                                          (t["sell"], t["sell_meta"])))
         say("kernel_g" if name == "well_spmv" else "kernel_h", name=name,
-            **p["stats"], plan_s=p["plan_s"], meta=dict(p["t"]["meta"]),
+            **p["stats"], plan_s=p["plan_s"], meta=dict(t["meta"]), **extra,
             k=1, ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bms,
             bound_by=by, bytes=nbytes,
             effective_GBps=nbytes / (ms * 1e-3) / 1e9,
             max_abs_err=err * scale, max_rel_err=err,
             max_rel_err_apply=worst, max_rel_err_small=small)
+        source = "well_spmv" if name == "well_spmv" else "sell_spmv"
         out.append(dict(name=name, route="cuda",
-                        source=f"ginkgo_tpu_torch/ops/csrc/{name}.cu",
+                        source=f"ginkgo_tpu_torch/ops/csrc/{source}.cu",
                         replaces=ATTIC[name][2], max_abs_err=err * scale,
                         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                         library_ms=lib))
@@ -1472,7 +1587,7 @@ def main() -> int:
     Ft, Mt, plan, ilut_launches = ilut_generate(Ai)
     onehot_launches = ilut_generate_onehot(Ai, Ft, plan)
 
-    kernels = [phase_kernel_a(Ab), phase_kernel_b(Ap),
+    kernels = [phase_kernel_a(Ab), phase_kernel_b(Ap, Ai),
                phase_kernel_c(M.l_solver, F.l_factor),
                *phase_kernels_de(plan), phase_kernel_f(Ab.shape[0])]
     del plan

@@ -17,9 +17,11 @@ from .device import resolve_device
 from .matrix.csr import Csr
 
 INDEX_ARRAYS = ("row_ptr", "col_idx", "row_idx", "tail_rows", "tail_cols")
-VALUE_ARRAYS = ("values", "diag_values", "tail_vals", "pell_vals")
-LAYOUT_INDEX_ARRAYS = {"pell_idx": torch.int16, "pell_qw": torch.int32,
-                       "pell_xbase": torch.int32}
+VALUE_ARRAYS = ("values", "diag_values", "tail_vals")
+# the packed slab, which ``Csr`` keeps on the host once it has built its
+# compact stream on the device
+SLAB_ARRAYS = {"pell_vals": None, "pell_idx": torch.int16,
+               "pell_qw": torch.int32, "pell_xbase": torch.int32}
 STATIC_FIELDS = ("shape", "nnz", "strategy", "diag_offsets", "band_meta",
                  "pell_meta")
 
@@ -33,20 +35,20 @@ def csr_from_arrays(arrays: dict, static: dict, device=None,
     kw = {name: static.get(name) for name in STATIC_FIELDS}
     kw["shape"] = tuple(int(s) for s in kw["shape"])
 
-    def put(name, dtype):
+    def put(name, dtype, dev=device):
         arr = arrays.get(name)
         if arr is not None:
             # np.array copies: arrays read out of another framework are
             # often read-only, which torch.from_numpy does not accept
-            kw[name] = torch.from_numpy(np.array(arr)).to(device=device,
+            kw[name] = torch.from_numpy(np.array(arr)).to(device=dev,
                                                           dtype=dtype)
 
     for name in INDEX_ARRAYS:
         put(name, index_dtype)
     for name in VALUE_ARRAYS:
         put(name, None)
-    for name, dtype in LAYOUT_INDEX_ARRAYS.items():
-        put(name, dtype)
+    for name, dtype in SLAB_ARRAYS.items():
+        put(name, dtype, "cpu")
     return Csr(**kw)
 
 

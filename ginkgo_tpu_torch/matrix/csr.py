@@ -13,8 +13,9 @@ Strategies here:
   - ``banded``: diagonal-offset layout for stencil-like matrices
     (``ops/spmv_banded.py``).
   - ``packed``: packed-slot windowed-ELL for unstructured matrices with
-    column locality (``ops/spmv_packed.py``); off-layout entries spill to
-    a COO tail.
+    column locality (``ops/spmv_packed.py``), applied through its compact
+    sliced stream (``ops/spmv_sell.py``); off-layout entries spill to a
+    COO tail.
   - ``automatical``: ``banded`` when the band census fits, else ``packed``
     when its padding stays economical, else ``classical``.
 
@@ -31,20 +32,22 @@ from ..base.linop import LinOp
 from ..base.matrix_data import MatrixData
 from ..device import resolve_device
 from ..ops.registry import lookup
+from ..ops.spmv_sell import sell_from_packed
 from .coo import Coo, pad_nnz
 
 
 def fast_spmv_apply(op, b):
     """Banded/packed + COO-tail SpMV dispatch over the aux attributes.
     Returns None when the operator carries no fast-path layout (caller
-    falls back)."""
+    falls back); raises for a packed operator without its layout."""
     if op.strategy == "banded" and op.diag_values is not None:
         y = lookup("dia_spmv", b.device)(op.diag_offsets, op.diag_values,
                                          dict(op.band_meta), b)
-    elif op.strategy == "packed" and op.pell_vals is not None:
-        y = lookup("pell_spmv", b.device)(op.pell_vals, op.pell_idx,
-                                          op.pell_qw, op.pell_xbase,
-                                          op.pell_meta, b)
+    elif op.strategy == "packed":
+        if op.sell is None:
+            raise ValueError("a packed Csr needs its planned slab (pell_meta,"
+                             " pell_vals, pell_idx, pell_qw, pell_xbase)")
+        y = lookup("pell_spmv", b.device)(op.sell, op.sell_meta, b)
     else:
         return None
     if op.tail_rows is not None:
@@ -65,8 +68,10 @@ def _upload(arr, device, dtype: torch.dtype):
 
 
 def aux_device_kw(n, value_dtype, index_dtype, tail, pell, device):
-    """Pad + device-place the COO tail and packed layout produced by
-    ``_process_strategy``; ``value_dtype`` is the torch value type."""
+    """Pad + device-place the COO tail produced by ``_process_strategy``,
+    and hand over its packed layout as host tensors (``Csr`` builds the
+    stream the SpMV reads on ``device``); ``value_dtype`` is the torch
+    value type."""
     kw = {}
     if tail is not None:
         tr, tc, tv = tail
@@ -82,17 +87,16 @@ def aux_device_kw(n, value_dtype, index_dtype, tail, pell, device):
                   tail_vals=_upload(tvo, device, value_dtype))
     if pell is not None:
         kw.update(pell_meta=pell["meta"],
-                  pell_vals=_upload(pell["vals"], device, value_dtype),
-                  pell_idx=_upload(pell["idx"], device, torch.int16),
-                  pell_qw=_upload(pell["qw"], device, torch.int32),
-                  pell_xbase=_upload(pell["xbase_row"], device,
-                                     torch.int32))
+                  pell_vals=_upload(pell["vals"], "cpu", value_dtype),
+                  pell_idx=_upload(pell["idx"], "cpu", torch.int16),
+                  pell_qw=_upload(pell["qw"], "cpu", torch.int32),
+                  pell_xbase=_upload(pell["xbase_row"], "cpu", torch.int32))
     return kw
 
 
 class Csr(LinOp):
     """CSR matrix with the aux arrays of its SpMV strategy, all tensors on
-    one device."""
+    one device but the packed slab, which stays on the host."""
 
     def __init__(self, row_ptr, col_idx, values, row_idx, shape, nnz,
                  strategy="classical", diag_offsets=None, band_meta=None,
@@ -115,12 +119,20 @@ class Csr(LinOp):
         self.tail_rows = tail_rows
         self.tail_cols = tail_cols
         self.tail_vals = tail_vals
-        # packed-slot windowed-ELL aux
+        # packed-slot windowed-ELL aux: the planned slab, kept on the host
+        # (no path reads it on the card), and its compact stream, built
+        # here on the operator's device: the one array set the SpMV reads
+        slab = (pell_vals, pell_idx, pell_qw, pell_xbase)
+        self.sell = self.sell_meta = None   # sv, sc, sp, xbase
+        if pell_vals is not None:
+            self.sell, self.sell_meta = sell_from_packed(
+                *(t.to(values.device) for t in slab), pell_meta)
+            slab = tuple(t.cpu() for t in slab)
         self.pell_meta = pell_meta
-        self.pell_vals = pell_vals      # (Gs, 8*Wv, 8, 128)
-        self.pell_idx = pell_idx        # int16, same shape
-        self.pell_qw = pell_qw          # (Gs*8*Wv,) int32
-        self.pell_xbase = pell_xbase    # (Gs,) int32
+        self.pell_vals = slab[0]        # (Gs, 8*Wv, 8, 128)
+        self.pell_idx = slab[1]         # int16, same shape
+        self.pell_qw = slab[2]          # (Gs*8*Wv,) int32
+        self.pell_xbase = slab[3]       # (Gs,) int32
 
     @property
     def device(self) -> torch.device:

@@ -29,10 +29,10 @@ SIGNATURES = {
     # vcode, xcode, dvb, offsets, D, S, n, x, ldx, y, ldy, k, stream
     "dia_spmv": ("dia_spmv_launch",
                  [_I, _I, _P, _P, _I, _I, _L, _P, _L, _P, _L, _I, _P]),
-    # vcode, xcode, vals, idx, qw, xbase_row, Wv, n, m, x, ldx, y, ldy, k,
+    # vcode, xcode, sv, sc, sp, xbase, n_slices, n, m, x, ldx, y, ldy, k,
     # stream
-    "pell_spmv": ("pell_spmv_launch",
-                  [_I, _I, _P, _P, _P, _P, _I, _L, _L, _P, _L, _P, _L, _I,
+    "sell_spmv": ("sell_spmv_launch",
+                  [_I, _I, _P, _P, _P, _P, _L, _L, _L, _P, _L, _P, _L, _I,
                    _P]),
     # xcode, inv, crossi, crossv, nwv, nb, P, Wv, n, flip, b, ldb, x, ldx,
     # k, stream
@@ -49,11 +49,6 @@ SIGNATURES = {
     # vcode, xcode, vals, c16, xbase_row, w, n, m, x, ldx, y, ldy, k, stream
     "well_spmv": ("well_spmv_launch",
                   [_I, _I, _P, _P, _P, _I, _L, _L, _P, _L, _P, _L, _I, _P]),
-    # vcode, xcode, vals, lanes, qid, xbase_row, Wv, n, m, x, ldx, y, ldy,
-    # k, stream
-    "cell_spmv": ("cell_spmv_launch",
-                  [_I, _I, _P, _P, _P, _P, _I, _L, _L, _P, _L, _P, _L, _I,
-                   _P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

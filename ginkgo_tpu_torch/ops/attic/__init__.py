@@ -7,8 +7,8 @@ the ``packed`` CSR strategy):
 
 - ``spmv_windowed``: windowed ELL with int16 window-relative columns
   (kernel ``csrc/well_spmv.cu``);
-- ``spmv_chunked``: chunk ELL, one x chunk per 8-slot vreg (kernel
-  ``csrc/cell_spmv.cu``).
+- ``spmv_chunked``: chunk ELL, one x chunk per 8-slot vreg (kernel H,
+  ``csrc/sell_spmv.cu`` over the slab's compact stream).
 
 Each module holds its host planner (verbatim), a plain torch version, the
 wrapper of its CUDA kernel and an ``apply`` that adds the COO tail.  These

@@ -10,8 +10,11 @@ j-th entry of a (row, chunk) lands in slot ``slot_base[block, chunk] + j``;
     (xbase_row[t] + qid[(t*8 + b)*Wv + v]) * 128 + lanes[t, b*Wv + v, s, lane]
 
 Per-block vreg counts are padded to ``Wv``; overflow entries spill to a COO
-tail.  The CUDA kernel ``csrc/cell_spmv.cu`` replaces
-``ginkgo_tpu/ops/attic/spmv_chunked.py::_cell_kernel``.
+tail.  ``cell_spmv_reference`` is the slab's plain version.  Kernel H,
+which replaces ``ginkgo_tpu/ops/attic/spmv_chunked.py::_cell_kernel``, is
+``csrc/sell_spmv.cu`` (kernel B's source) over the slab's compact stream
+(``ops/spmv_sell.py``, 5.5 times smaller on the FEM matrix), which
+``upload`` builds; ``cell_spmv`` in the registry takes that stream.
 
 Not imported by the package: ``from ginkgo_tpu_torch.ops.attic import
 spmv_chunked`` registers ``cell_spmv``.
@@ -23,9 +26,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import _cuda
+from .. import spmv_sell
 from ..registry import lookup, register
-from .spmv_windowed import add_tail, upload  # noqa: F401  (re-exported)
+from ..spmv_sell import sell_from_chunked, sell_spmv_reference
+from . import spmv_windowed
+from .spmv_windowed import add_tail
 
 LANES = 128
 _ROWS_PER_BLOCK = 128
@@ -164,9 +169,9 @@ def _pad_x(b_col, meta):
     return F.pad(b_col, (0, rows * LANES - m))
 
 
-@register("cell_spmv", "reference")
 def cell_spmv_reference(vals, lanes, qid, xbase_row, meta_items, b):
-    """Plain version: same arrays, plain gather from zero-padded x."""
+    """The function the chunk-ELL slab defines, by a plain gather from
+    zero-padded x: the oracle that the compact stream is held against."""
     meta = dict(meta_items)
     Gs, Wv, n = meta["Gs"], meta["Wv"], meta["n"]
     qid2 = qid.reshape(Gs, _BLOCKS_PER_SB * Wv).long()
@@ -181,66 +186,44 @@ def cell_spmv_reference(vals, lanes, qid, xbase_row, meta_items, b):
     return torch.stack(outs, dim=1)
 
 
-MAX_RHS = 8        # columns per kernel launch; vals+lanes stream once per launch
+register("cell_spmv", "reference")(sell_spmv_reference)
 
 
 @register("cell_spmv", "cuda")
-def cell_spmv_cuda(vals, lanes, qid, xbase_row, meta_items, b):
-    """Chunk-ELL SpMV/SpMM on the CUDA kernel, one launch per <= 8
-    columns.  f32 only, as the TPU kernel.
+def cell_spmv_cuda(sell, sell_meta, b):
+    """Kernel H: the chunk-ELL SpMV/SpMM over the layout's compact stream
+    (``spmv_sell.sell_from_chunked``) on ``csrc/sell_spmv.cu``, one launch
+    per <= 8 columns.  f32 only, as the TPU kernel.
 
     A tensor on the CPU takes the plain version; on a CUDA device this
     launches the kernel or raises — it never falls back."""
     if b.device.type != "cuda":
-        return cell_spmv_reference(vals, lanes, qid, xbase_row, meta_items, b)
-    meta = dict(meta_items)
-    n, m, Gs, Wv = meta["n"], meta["m"], meta["Gs"], meta["Wv"]
-    if vals.dtype != torch.float32 or b.dtype != torch.float32:
+        return sell_spmv_reference(sell, sell_meta, b)
+    if sell["sv"].dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"cell_spmv kernel takes f32 values and vectors, "
-                        f"got ({vals.dtype}, {b.dtype})")
-    slab = (Gs, _BLOCKS_PER_SB * Wv, 8, LANES)
-    if (tuple(vals.shape) != slab or tuple(lanes.shape) != slab
-            or lanes.dtype != torch.int16
-            or tuple(qid.shape) != (Gs * _BLOCKS_PER_SB * Wv,)
-            or qid.dtype != torch.int32 or tuple(xbase_row.shape) != (Gs,)
-            or xbase_row.dtype != torch.int32
-            or b.ndim != 2 or b.shape[0] != m or n > Gs * _SB_ROWS):
-        raise ValueError(
-            f"cell_spmv: layout vals {tuple(vals.shape)} lanes "
-            f"{tuple(lanes.shape)}/{lanes.dtype} qid {tuple(qid.shape)}/"
-            f"{qid.dtype} xbase {tuple(xbase_row.shape)}/{xbase_row.dtype} "
-            f"and b {tuple(b.shape)} do not fit meta {meta}")
-    if any(t.device != b.device for t in (vals, lanes, qid, xbase_row)):
-        raise ValueError("cell_spmv: layout and b must share one device")
-    if not all(t.is_contiguous() for t in (vals, lanes, qid, xbase_row, b)):
-        raise ValueError("cell_spmv: layout and b must be contiguous")
-    k = b.shape[1]
-    y = torch.empty((n, k), dtype=b.dtype, device=b.device)
-    if n == 0 or k == 0:
-        return y
-    lib = _cuda.library("cell_spmv")
-    code32 = _cuda.type_code(torch.float32)
-    esize = b.element_size()
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream(b.device).cuda_stream
-        for c0 in range(0, k, MAX_RHS):
-            kc = min(MAX_RHS, k - c0)
-            code = lib.cell_spmv_launch(
-                code32, code32, vals.data_ptr(), lanes.data_ptr(),
-                qid.data_ptr(), xbase_row.data_ptr(), Wv, n, m,
-                b.data_ptr() + c0 * esize, k, y.data_ptr() + c0 * esize, k,
-                kc, stream)
-            _cuda.check("cell_spmv", code)
-            cell_spmv_cuda.launches += 1
+                        f"got ({sell['sv'].dtype}, {b.dtype})")
+    y = spmv_sell.prepare(sell, sell_meta, b, "cell_spmv")
+    for c0 in range(0, b.shape[1], spmv_sell.MAX_RHS):
+        spmv_sell.launch(sell, sell_meta, b, y, c0)
+        cell_spmv_cuda.launches += 1
     return y
 
 
 cell_spmv_cuda.launches = 0    # kernel launches since the last reset
 
 
+def upload(layout, tail, device):
+    """The planned ``layout`` and COO ``tail`` as tensors on ``device``
+    (``spmv_windowed.upload``), plus the slab's compact stream ``sell``
+    and its ``sell_meta``, built there."""
+    t = spmv_windowed.upload(layout, tail, device)
+    t["sell"], t["sell_meta"] = sell_from_chunked(
+        *(t[key] for key in ARRAYS), t["meta"])
+    return t
+
+
 def cell_spmv_apply(t, b):
-    """A @ b for an uploaded plan ``t``: the ELL part on the tier of b's
-    device (the kernel on CUDA) plus the COO tail."""
-    y = lookup("cell_spmv", b.device)(*(t[key] for key in ARRAYS),
-                                      t["meta"], b)
+    """A @ b for an uploaded plan ``t``: the compact stream on the tier of
+    b's device (kernel H on CUDA) plus the COO tail."""
+    y = lookup("cell_spmv", b.device)(t["sell"], t["sell_meta"], b)
     return add_tail(y, t["tail"], b)

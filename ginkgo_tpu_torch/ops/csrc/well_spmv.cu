@@ -18,7 +18,7 @@
 // right-hand sides; x is gathered and y written once.  One multiply-add a
 // slot and column, far below the card's rate.
 //
-// Design, the simple one that is right first (as pell_spmv.cu):
+// Design, the simple one that is right first:
 //   * one thread per row; the 128 lanes of a slot are 128 consecutive rows,
 //     so a warp's vals and c16 loads coalesce;
 //   * each thread handles all K <= 8 columns of its row;

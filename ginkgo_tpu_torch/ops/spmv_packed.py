@@ -9,13 +9,17 @@ so an entry's column is
     (xbase_row[t] + 8 * qw[vreg] + (idx >> 7)) * 128 + (idx & 127)
 
 with ``idx`` an int16.  This module holds the host layout planner
-(verbatim), the plain torch version ``pell_spmv_reference`` and the
-wrapper of the CUDA kernel ``csrc/pell_spmv.cu``, which replaces the Pallas
-kernel ``ginkgo_tpu/ops/spmv_packed.py::_pell_kernel``.
+(verbatim), the slab's plain version ``pell_spmv_reference`` and kernel
+B's wrapper ``pell_spmv_cuda``, which replaces the Pallas kernel
+``ginkgo_tpu/ops/spmv_packed.py::_pell_kernel``.  The slab's shape serves
+the TPU's gathers and pads the kept entries 3-4 times over, so the wrapper
+runs ``csrc/sell_spmv.cu`` over the slab's compact stream
+(``ops/spmv_sell.py``), built once at set-up; ``pell_spmv`` in the
+registry takes that stream, and its plain version is
+``spmv_sell.sell_spmv_reference``.
 
-The kernel is bounded by bytes: it streams vals + idx once per group of
-<= 8 right-hand sides, plus x and y.  Entries that overflow the window or
-the slot budget spill to a COO tail handled by ``coo_spmv``.
+Entries that overflow the window or the slot budget spill to a COO tail
+handled by ``coo_spmv``.
 """
 
 from __future__ import annotations
@@ -24,8 +28,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import _cuda
+from . import spmv_sell
 from .registry import register
+from .spmv_sell import sell_spmv_reference
 
 LANES = 128
 _ROWS_PER_BLOCK = 128
@@ -186,9 +191,9 @@ def _pad_x(b_col, meta):
     return F.pad(b_col, (0, rows * LANES - m))
 
 
-@register("pell_spmv", "reference")
 def pell_spmv_reference(vals, idx, qw, xbase_row, meta_items, b):
-    """Plain version of the packed kernel: same arrays, plain gather."""
+    """The function the packed slab defines, by a plain gather: the
+    oracle that the compact stream is held against."""
     meta = dict(meta_items)
     Gs, Wv, n = meta["Gs"], meta["Wv"], meta["n"]
     qw2 = qw.reshape(Gs, _BLOCKS_PER_SB * Wv).long()
@@ -206,68 +211,39 @@ def pell_spmv_reference(vals, idx, qw, xbase_row, meta_items, b):
     return torch.stack(outs, dim=1)
 
 
-MAX_RHS = 8        # columns per kernel launch; vals+idx stream once per launch
-
 # (value storage, vector) dtypes the kernel takes
 KERNEL_DTYPES = {(torch.float32, torch.float32),
                  (torch.bfloat16, torch.float32),
                  (torch.float16, torch.float32),
                  (torch.float64, torch.float64)}
 
+register("pell_spmv", "reference")(sell_spmv_reference)
+
 
 @register("pell_spmv", "cuda")
-def pell_spmv_cuda(vals, idx, qw, xbase_row, meta_items, b):
-    """Packed SpMV/SpMM on the CUDA kernel, one launch per <= 8 columns.
+def pell_spmv_cuda(sell, sell_meta, b):
+    """Kernel B: the packed SpMV/SpMM over the layout's compact stream
+    (``spmv_sell.sell_from_packed``) on ``csrc/sell_spmv.cu``, one launch
+    per <= 8 columns.
 
     A tensor on the CPU takes the plain version; on a CUDA device this
     launches the kernel or raises — it never falls back."""
     if b.device.type != "cuda":
-        return pell_spmv_reference(vals, idx, qw, xbase_row, meta_items, b)
-    meta = dict(meta_items)
-    n, m, Gs, Wv = meta["n"], meta["m"], meta["Gs"], meta["Wv"]
-    if b.is_complex() or vals.is_complex():
+        return sell_spmv_reference(sell, sell_meta, b)
+    sv = sell["sv"]
+    if b.is_complex() or sv.is_complex():
         raise NotImplementedError(
             "complex packed SpMV on CUDA needs the re/im plane split of "
             "ginkgo_tpu/ops/spmv_packed.py:411-447, which a later slice of "
             "the port brings (ROADMAP.md, queue 2 item 2)")
-    if (vals.dtype, b.dtype) not in KERNEL_DTYPES:
+    if (sv.dtype, b.dtype) not in KERNEL_DTYPES:
         raise TypeError(f"pell_spmv kernel takes (values, vector) dtypes "
                         f"{sorted(map(str, KERNEL_DTYPES))}, got "
-                        f"({vals.dtype}, {b.dtype})")
-    slab = (Gs, _BLOCKS_PER_SB * Wv, 8, LANES)
-    if (tuple(vals.shape) != slab or tuple(idx.shape) != slab
-            or idx.dtype != torch.int16
-            or tuple(qw.shape) != (Gs * _BLOCKS_PER_SB * Wv,)
-            or qw.dtype != torch.int32 or tuple(xbase_row.shape) != (Gs,)
-            or xbase_row.dtype != torch.int32
-            or b.ndim != 2 or b.shape[0] != m or n > Gs * _SB_ROWS):
-        raise ValueError(
-            f"pell_spmv: layout vals {tuple(vals.shape)} idx "
-            f"{tuple(idx.shape)}/{idx.dtype} qw {tuple(qw.shape)}/{qw.dtype}"
-            f" xbase {tuple(xbase_row.shape)}/{xbase_row.dtype} and b "
-            f"{tuple(b.shape)} do not fit meta {meta}")
-    if any(t.device != b.device for t in (vals, idx, qw, xbase_row)):
-        raise ValueError("pell_spmv: layout and b must share one device")
-    if not all(t.is_contiguous() for t in (vals, idx, qw, xbase_row, b)):
-        raise ValueError("pell_spmv: layout and b must be contiguous")
-    k = b.shape[1]
-    y = torch.empty((n, k), dtype=b.dtype, device=b.device)
-    if n == 0 or k == 0:
-        return y
-    lib = _cuda.library("pell_spmv")
-    vcode, xcode = _cuda.type_code(vals.dtype), _cuda.type_code(b.dtype)
-    esize = b.element_size()
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream(b.device).cuda_stream
-        for c0 in range(0, k, MAX_RHS):
-            kc = min(MAX_RHS, k - c0)
-            code = lib.pell_spmv_launch(
-                vcode, xcode, vals.data_ptr(), idx.data_ptr(),
-                qw.data_ptr(), xbase_row.data_ptr(), Wv, n, m,
-                b.data_ptr() + c0 * esize, k, y.data_ptr() + c0 * esize, k,
-                kc, stream)
-            _cuda.check("pell_spmv", code)
-            pell_spmv_cuda.launches += 1
+                        f"({sv.dtype}, {b.dtype})")
+    y = spmv_sell.prepare(sell, sell_meta, b, "pell_spmv")
+    for c0 in range(0, b.shape[1], spmv_sell.MAX_RHS):
+        spmv_sell.launch(sell, sell_meta, b, y, c0)
+        pell_spmv_cuda.launches += 1
     return y
 
 

@@ -112,10 +112,11 @@ def _jax_apply(kind, layout, tail, n, b):
 
 
 def _port_apply(kind, layout, tail, b):
-    """The port's apply on the CPU (its plain version) plus the tail."""
+    """The port's apply on the CPU (its plain version) plus the tail,
+    with the planned values in b's dtype."""
     _, tmod, _, name, _ = KINDS[kind]
-    t = tmod.upload(layout, tail, "cpu")
-    t["vals"] = t["vals"].to(torch.from_numpy(b).dtype)
+    t = tmod.upload(dict(layout, vals=layout["vals"].astype(b.dtype)),
+                    tail, "cpu")
     before = getattr(tmod, f"{name}_cuda").launches
     y = getattr(tmod, f"{name}_apply")(t, torch.from_numpy(b))
     assert getattr(tmod, f"{name}_cuda").launches == before
@@ -179,21 +180,23 @@ def test_attic_is_not_imported_by_the_package():
 
 def test_cuda_wrappers_take_the_plain_version_on_the_cpu():
     """On CPU tensors the registered cuda tier is the plain version and
-    counts no launch."""
-    from ginkgo_tpu_torch.ops import registry
+    counts no launch.  Kernel H's wrapper takes the slab's compact stream
+    (``ops/spmv_sell.py``), so its plain version is the stream's."""
+    from ginkgo_tpu_torch.ops import registry, spmv_sell
     case = _random_local(700, 2, 10, 300, 5)
     for kind in KINDS:
         _, (tl, tt, _), n, _ = _plan(kind, case)
         _, tmod, _, name, _ = KINDS[kind]
-        assert registry.lookup(name, "cpu") is getattr(
-            tmod, f"{name}_reference")
         t = tmod.upload(tl, tt, "cpu")
+        if kind == "windowed":
+            plain = TW.well_spmv_reference
+            args = [t[k] for k in TW.ARRAYS] + [t["meta"]]
+        else:
+            plain = spmv_sell.sell_spmv_reference
+            args = [t["sell"], t["sell_meta"]]
+        assert registry.lookup(name, "cpu") is plain
         b = torch.ones((n, 2), dtype=torch.float64)
         before = getattr(tmod, f"{name}_cuda").launches
-        arrays = TW.ARRAYS if kind == "windowed" else TC.ARRAYS
-        y = getattr(tmod, f"{name}_cuda")(*(t[k] for k in arrays),
-                                          t["meta"], b)
+        y = getattr(tmod, f"{name}_cuda")(*args, b)
         assert getattr(tmod, f"{name}_cuda").launches == before
-        want = getattr(tmod, f"{name}_reference")(*(t[k] for k in arrays),
-                                                  t["meta"], b)
-        assert torch.equal(y, want)
+        assert torch.equal(y, plain(*args, b))

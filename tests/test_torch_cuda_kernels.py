@@ -17,8 +17,8 @@ import ginkgo_tpu_torch as gtt
 from ginkgo_tpu_torch.benchmark import build_matrix_data
 from ginkgo_tpu_torch.factorization import ParIct, ParIlu, ParIlut
 from ginkgo_tpu_torch.ops import (pair_contract, registry, row_write,
-                                  spmv_banded, spmv_packed, tri_inv,
-                                  tri_packed)
+                                  spmv_banded, spmv_packed, spmv_sell,
+                                  tri_inv, tri_packed)
 from ginkgo_tpu_torch.ops.attic import spmv_chunked, spmv_windowed
 from ginkgo_tpu_torch.preconditioner import Ilu, Jacobi
 from ginkgo_tpu_torch.solver import Bicgstab, CbGmres, Cg
@@ -87,20 +87,48 @@ def _packed_csr(dev):
                              device=dev)
 
 
+def _chunked_stream(dev, vdtype):
+    """The chunk-ELL slab of the FEM matrix and its compact stream, with
+    the planned values in ``vdtype``."""
+    d = build_matrix_data({"fem": 4096, "offscale": 1.2})
+    layout, _, _ = spmv_chunked.plan_chunked_layout(d, d.values)
+    arrays = [torch.from_numpy(layout[key]).to(dev)
+              for key in spmv_chunked.ARRAYS]
+    arrays[0] = arrays[0].to(vdtype)
+    return (spmv_sell.sell_from_chunked(*arrays, layout["meta"]),
+            (spmv_chunked.cell_spmv_reference, arrays, layout["meta"]))
+
+
+def _packed_stream(dev, vdtype):
+    """The packed slab of a permuted stencil and its compact stream, with
+    the planned values in ``vdtype``."""
+    A = _packed_csr(dev)
+    assert A.strategy == "packed" and A.pell_vals.device.type == "cpu"
+    arrays = [t.to(dev) for t in (A.pell_vals, A.pell_idx, A.pell_qw,
+                                  A.pell_xbase)]
+    arrays[0] = arrays[0].to(vdtype)
+    return (spmv_sell.sell_from_packed(*arrays, A.pell_meta),
+            (spmv_packed.pell_spmv_reference, arrays, A.pell_meta))
+
+
 @pytest.mark.parametrize("vdtype", VDTYPES, ids=str)
 @pytest.mark.parametrize("k", [1, 3, 8, 9])
-def test_pell_kernel_matches_plain(dev, vdtype, k):
-    A = _packed_csr(dev)
-    assert A.strategy == "packed"
-    args = (A.pell_vals.to(vdtype), A.pell_idx, A.pell_qw, A.pell_xbase,
-            A.pell_meta)
-    x = torch.randn((A.shape[1], k), dtype=_xdtype(vdtype), device=dev)
+@pytest.mark.parametrize("layout", ["packed", "chunked"])
+def test_sell_kernel_matches_plain(dev, layout, k, vdtype):
+    """``sell_spmv.cu`` (through kernel B's wrapper, which takes all four
+    type pairs) over either slab's stream, against the stream's plain
+    version and the slab's own."""
+    make = _packed_stream if layout == "packed" else _chunked_stream
+    (sell, smeta), (slab_plain, arrays, meta) = make(dev, vdtype)
+    x = torch.randn((dict(smeta)["m"], k), dtype=_xdtype(vdtype), device=dev)
     before = spmv_packed.pell_spmv_cuda.launches
-    y = spmv_packed.pell_spmv_cuda(*args, x)
+    y = spmv_packed.pell_spmv_cuda(sell, smeta, x)
     torch.cuda.synchronize()
     assert spmv_packed.pell_spmv_cuda.launches - before == -(-k // 8)
-    want = spmv_packed.pell_spmv_reference(*args, x)
-    assert _rel_err(y, want) <= TOL[vdtype]
+    assert y.dtype == x.dtype and y.shape == (dict(smeta)["n"], k)
+    assert _rel_err(y, spmv_sell.sell_spmv_reference(sell, smeta, x)) \
+        <= TOL[vdtype]
+    assert _rel_err(y, slab_plain(*arrays, meta, x)) <= TOL[vdtype]
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -116,14 +144,23 @@ def test_wrappers_raise_instead_of_falling_back(dev):
                                   x.to(torch.complex64))
     A = _packed_csr(dev)
     xb = torch.ones((A.shape[1], 1), dtype=torch.float64, device=dev)
+    f32 = dict(A.sell, sv=A.sell["sv"].float())
     with pytest.raises(TypeError):
-        spmv_packed.pell_spmv_cuda(A.pell_vals.float(), A.pell_idx, A.pell_qw,
-                                   A.pell_xbase, A.pell_meta, xb)
+        spmv_packed.pell_spmv_cuda(f32, A.sell_meta, xb)
     with pytest.raises(NotImplementedError, match="re/im"):
-        spmv_packed.pell_spmv_cuda(A.pell_vals.to(torch.complex128),
-                                   A.pell_idx, A.pell_qw, A.pell_xbase,
-                                   A.pell_meta, xb.to(torch.complex128))
+        spmv_packed.pell_spmv_cuda(
+            dict(A.sell, sv=A.sell["sv"].to(torch.complex128)), A.sell_meta,
+            xb.to(torch.complex128))
+    with pytest.raises(ValueError, match="one device"):
+        spmv_packed.pell_spmv_cuda(dict(A.sell, sp=A.sell["sp"].cpu()),
+                                   A.sell_meta, xb)
+    with pytest.raises(ValueError, match="contiguous"):
+        spmv_packed.pell_spmv_cuda(A.sell, A.sell_meta,
+                                   xb.repeat(1, 2)[:, :1])
+    with pytest.raises(ValueError):
+        spmv_packed.pell_spmv_cuda(A.sell, A.sell_meta, xb[:-1])
     assert registry.lookup("dia_spmv", dev) is spmv_banded.dia_spmv_cuda
+    assert registry.lookup("pell_spmv", dev) is spmv_packed.pell_spmv_cuda
 
 
 @pytest.mark.parametrize("make", [lambda: stencil_3d(12, points=27),
@@ -457,20 +494,32 @@ def _attic_plan(kind, dev, capped):
     return mod, name, mod.upload(layout, tail, dev), d
 
 
+def _attic_args(kind, t):
+    """The kernel wrapper's layout arguments: G's slab, H's compact
+    stream."""
+    if kind == "windowed":
+        return [t[key] for key in spmv_windowed.ARRAYS] + [t["meta"]]
+    return [t["sell"], t["sell_meta"]]
+
+
 @pytest.mark.parametrize("k", [1, 3, 8, 9])
 @pytest.mark.parametrize("capped", [False, True], ids=["", "capped"])
 @pytest.mark.parametrize("kind", list(ATTIC))
 def test_attic_kernels_match_plain(dev, kind, capped, k):
     mod, name, t, d = _attic_plan(kind, dev, capped)
     kernel = getattr(mod, f"{name}_cuda")
-    args = [t[key] for key in mod.ARRAYS]
     x = torch.randn((d.shape[1], k), dtype=torch.float32, device=dev)
     before = kernel.launches
-    y = kernel(*args, t["meta"], x)
+    y = kernel(*_attic_args(kind, t), x)
     torch.cuda.synchronize()
     assert kernel.launches - before == -(-k // 8)
-    want = getattr(mod, f"{name}_reference")(*args, t["meta"], x)
+    # against the slab's plain version (for H also the stream's)
+    slab = [t[key] for key in mod.ARRAYS]
+    want = getattr(mod, f"{name}_reference")(*slab, t["meta"], x)
     assert _rel_err(y, want) <= 1e-5
+    if kind == "chunked":
+        assert _rel_err(y, spmv_sell.sell_spmv_reference(
+            t["sell"], t["sell_meta"], x)) <= 1e-5
     # the apply (kernel plus the COO tail) against an f64 product
     y = getattr(mod, f"{name}_apply")(t, x)
     A = torch.sparse_coo_tensor(
@@ -483,18 +532,24 @@ def test_attic_wrappers_raise_instead_of_falling_back(dev):
     for kind in ATTIC:
         mod, name, t, d = _attic_plan(kind, dev, False)
         kernel = getattr(mod, f"{name}_cuda")
-        args = [t[key] for key in mod.ARRAYS]
+        args = _attic_args(kind, t)
+        if kind == "windowed":
+            f64, on_cpu = [args[0].double(), *args[1:]], \
+                [args[0].cpu(), *args[1:]]
+        else:
+            f64 = [dict(args[0], sv=args[0]["sv"].double()), args[1]]
+            on_cpu = [dict(args[0], sv=args[0]["sv"].cpu()), args[1]]
         x = torch.ones((d.shape[1], 2), dtype=torch.float32, device=dev)
         with pytest.raises(TypeError):
-            kernel(*args, t["meta"], x.double())
+            kernel(*args, x.double())
         with pytest.raises(TypeError):
-            kernel(args[0].double(), *args[1:], t["meta"], x)
+            kernel(*f64, x)
         with pytest.raises(ValueError):
-            kernel(*args, t["meta"], x[:-1])
+            kernel(*args, x[:-1])
         with pytest.raises(ValueError, match="contiguous"):
-            kernel(*args, t["meta"], x.t().contiguous().t())
+            kernel(*args, x.t().contiguous().t())
         with pytest.raises(ValueError, match="one device"):
-            kernel(args[0].cpu(), *args[1:], t["meta"], x)
+            kernel(*on_cpu, x)
         assert registry.lookup(name, dev) is kernel
 
 

@@ -90,7 +90,7 @@ def test_failed_build_raises_with_nvcc_stderr(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
     monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "kernels")
     with pytest.raises(RuntimeError, match="fake compiler refused"):
-        _cuda.build(("dia_spmv", "pell_spmv"))
+        _cuda.build(("dia_spmv", "sell_spmv"))
     assert not list((tmp_path / "kernels").glob("*.so"))
     for name in _cuda.SIGNATURES:
         assert (_cuda.SRC_DIR / f"{name}.cu").exists()

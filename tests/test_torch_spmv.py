@@ -5,7 +5,9 @@
   the banded Pallas kernel in interpret mode;
 - numpy emulations of the CUDA kernels' own index arithmetic (one thread
   per row, flat addresses, masked x reads) against the plain versions, so
-  the address math of ``ops/csrc/*.cu`` is checked without a card;
+  the address math of ``ops/csrc/*.cu`` is checked without a card; for
+  ``sell_spmv.cu`` over the compact streams of both slabs it serves
+  (kernels B and H);
 - the whole ``Csr.apply``, COO tails included, against the JAX ``Csr``;
 - the wrappers' dispatch: CPU tensors take the plain version, and the
   registry routes CUDA operands to the kernel wrappers.
@@ -25,7 +27,8 @@ import ginkgo_tpu_torch as gtt
 from ginkgo_tpu.ops import spmv_packed as jpk
 from ginkgo_tpu.ops.spmv import dia_spmv as jax_dia_spmv
 from ginkgo_tpu.ops.spmv_pallas import dia_spmv_pallas
-from ginkgo_tpu_torch.ops import registry, spmv_banded, spmv_packed
+from ginkgo_tpu_torch.ops import registry, spmv_banded, spmv_packed, spmv_sell
+from ginkgo_tpu_torch.ops.attic import spmv_chunked
 from ginkgo_tpu_torch.utils import generators as tgen
 
 RTOL = {np.float64: 1e-12, np.float32: 1e-5, "bf16": 1e-5}
@@ -165,38 +168,64 @@ def test_pell_plain_matches_jax(name, k, dtype):
     _close(got.numpy(), want, RTOL[dtype])
 
 
-def emulate_pell_kernel(layout, x):
-    """csrc/pell_spmv.cu's arithmetic in numpy: thread r of superblock t,
-    block b, lane l reads slot ((t*8 + b)*Wv + v)*1024 + s*128 + l and
-    gathers x[col] for col < m (no padded copy of x)."""
-    meta = dict(layout["meta"])
-    n, m, Wv = meta["n"], meta["m"], meta["Wv"]
-    vals, idx = layout["vals"].reshape(-1), layout["idx"].reshape(-1)
-    qw, xbase = layout["qw"], layout["xbase_row"]
-    r = np.arange(n)
-    t, blk = r >> 10, (r >> 7) & 7
-    vreg0 = (t * 8 + blk) * Wv
-    y = np.zeros((n, x.shape[1]), np.float64)
-    for v in range(Wv):
-        rowbase = xbase[t].astype(np.int64) + 8 * qw[vreg0 + v]
-        for s in range(8):
-            e = (vreg0 + v) * 1024 + s * 128 + (r & 127)
-            iv = idx[e].astype(np.int64)
-            col = (rowbase + (iv >> 7)) * 128 + (iv & 127)
-            ok = col < m
-            y[ok] += vals[e][ok, None] * x[col[ok]]
-    return y
+def emulate_sell_kernel(sell, meta_items, x):
+    """csrc/sell_spmv.cu's arithmetic in numpy: thread r of slice
+    s = r >> 5 and lane r & 31 walks j < width(s), reads stream entry
+    sp[s] + 32 j + lane, takes column 128 * xbase[s >> 5] + sc, and gathers
+    x[col] for col < m (no padded copy of x)."""
+    meta = dict(meta_items)
+    n, m, n_slices = meta["n"], meta["m"], meta["n_slices"]
+    sv = sell["sv"].double().numpy()
+    sc = sell["sc"].numpy().astype(np.int64)
+    sp = sell["sp"].numpy()
+    xbase = sell["xbase"].numpy().astype(np.int64)
+    r = np.arange(n_slices * 32)
+    s = r >> 5
+    width = (sp[s + 1] - sp[s]) >> 5
+    base = 128 * xbase[s >> 5]
+    y = np.zeros((r.size, x.shape[1]), np.float64)
+    for j in range(int(width.max())):
+        live = j < width
+        e = np.where(live, sp[s] + 32 * j + (r & 31), 0)
+        col = base + sc[e]
+        ok = live & (col < m)
+        y[ok] += sv[e][ok, None] * x[col[ok]]
+    return y[:n]
+
+
+def _torch_layout(layout, names):
+    return [torch.from_numpy(layout[a]) for a in names]
 
 
 @pytest.mark.parametrize("name", ["fem_like", "permuted", "rect"])
 def test_pell_kernel_index_math(name):
+    """Kernel B's thread walk over the slab's compact stream against the
+    slab's own plain version."""
     d, layout = _packed_layout(name)
     x = np.random.default_rng(9).standard_normal((d.shape[1], 2))
-    want = spmv_packed.pell_spmv_reference(
-        *(torch.from_numpy(layout[a]) for a in ("vals", "idx", "qw",
-                                                "xbase_row")),
-        layout["meta"], torch.from_numpy(x))
-    _close(emulate_pell_kernel(layout, x), want.numpy(), 1e-12)
+    arrays = _torch_layout(layout, ("vals", "idx", "qw", "xbase_row"))
+    want = spmv_packed.pell_spmv_reference(*arrays, layout["meta"],
+                                           torch.from_numpy(x))
+    sell, smeta = spmv_sell.sell_from_packed(*arrays, layout["meta"])
+    _close(emulate_sell_kernel(sell, smeta, x), want.numpy(), 1e-12)
+
+
+@pytest.mark.parametrize("capped", [False, True], ids=["", "capped"])
+@pytest.mark.parametrize("name", ["fem_like", "permuted", "rect"])
+def test_cell_kernel_index_math(name, capped):
+    """Kernel H's thread walk over the chunk-ELL slab's compact stream
+    against the slab's own plain version, with (capped) and without a
+    COO tail."""
+    d, _ = _packed_layout(name)
+    layout, tail, _ = spmv_chunked.plan_chunked_layout(
+        d, d.values, **({"wv_cap": 2} if capped else {}))
+    assert (len(tail[0]) > 0) == capped
+    x = np.random.default_rng(10).standard_normal((d.shape[1], 3))
+    arrays = _torch_layout(layout, spmv_chunked.ARRAYS)
+    want = spmv_chunked.cell_spmv_reference(*arrays, layout["meta"],
+                                            torch.from_numpy(x))
+    sell, smeta = spmv_sell.sell_from_chunked(*arrays, layout["meta"])
+    _close(emulate_sell_kernel(sell, smeta, x), want.numpy(), 1e-12)
 
 
 def _dense_row_case():
@@ -268,13 +297,13 @@ def test_cpu_tensors_take_plain_versions():
     assert torch.equal(got, want)
     assert spmv_banded.dia_spmv_cuda.launches == before
     d, layout = _packed_layout("permuted")
-    args = [torch.from_numpy(layout[a]) for a in ("vals", "idx", "qw",
-                                                  "xbase_row")]
+    sell, smeta = spmv_sell.sell_from_packed(
+        *_torch_layout(layout, ("vals", "idx", "qw", "xbase_row")),
+        layout["meta"])
     xb = torch.ones((d.shape[1], 1), dtype=torch.float64)
     before = spmv_packed.pell_spmv_cuda.launches
-    assert torch.equal(
-        spmv_packed.pell_spmv_cuda(*args, layout["meta"], xb),
-        spmv_packed.pell_spmv_reference(*args, layout["meta"], xb))
+    assert torch.equal(spmv_packed.pell_spmv_cuda(sell, smeta, xb),
+                       spmv_sell.sell_spmv_reference(sell, smeta, xb))
     assert spmv_packed.pell_spmv_cuda.launches == before
 
 
@@ -284,8 +313,10 @@ def test_registry_routes_by_device():
     assert registry.lookup("pell_spmv", cuda) is spmv_packed.pell_spmv_cuda
     assert registry.lookup("dia_spmv", cpu) is \
         spmv_banded.dia_spmv_reference
+    # the packed op runs over the compact stream: its plain version is
+    # the stream's
     assert registry.lookup("pell_spmv", cpu) is \
-        spmv_packed.pell_spmv_reference
+        spmv_sell.sell_spmv_reference
     # no cuda tier: the plain version runs on the card too
     from ginkgo_tpu_torch.ops.spmv import coo_spmv
     assert registry.lookup("coo_spmv", cuda) is coo_spmv

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Probe the port's main-path Jacobi-CG solves on a CUDA card.
 
-    python3 tools/torch_solve_probe.py
+    python3 tools/torch_solve_probe.py [banded] [packed]
 
 For the two systems of ``chip_smoke.py`` (the 27-point stencil at nx=160,
 banded layout, and the locally permuted 256x64x64 stencil, packed layout),
-both in f32 with b = ones:
+or those named on the command line, both in f32 with b = ones:
 
 1. solve at each ResidualNorm tolerance of ``TOLS`` and print iterations,
    converged / stagnated and the true relative residual recomputed in f64,
@@ -16,12 +16,14 @@ both in f32 with b = ones:
    share of it; the window holds 52 SpMVs: the initial residual, 50
    iterations and the final true-residual audit.
 
-Prints one JSON object per line; imports nothing of JAX.
+Prints the card's ``nvidia-smi`` name and power limit, then one JSON
+object per line; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -101,11 +103,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_solve_probe: needs a CUDA device", file=sys.stderr)
         return 2
-    print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
-    systems = (("banded", lambda: stencil_3d(160, points=27)),
-               ("packed", lambda: permute_locally(
-                   stencil_3d(256, 64, 64, points=27))))
-    for label, make in systems:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(json.dumps({"card": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smi}), flush=True)
+    systems = {"banded": lambda: stencil_3d(160, points=27),
+               "packed": lambda: permute_locally(
+                   stencil_3d(256, 64, 64, points=27))}
+    for label in sys.argv[1:] or systems:
+        make = systems[label]
         A = gtt.Csr.from_data(make(), dtype=np.float32)
         b = torch.ones(A.shape[0], dtype=torch.float32, device="cuda")
         sweep(label, A, b)
