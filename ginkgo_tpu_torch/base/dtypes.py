@@ -18,6 +18,21 @@ def as_torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
 
 
+def is_complex(dtype) -> bool:
+    return as_torch_dtype(dtype).is_complex
+
+
+def complex_dtype(dtype) -> torch.dtype:
+    """The complex counterpart of a value type: complex64 for f32, bf16
+    and f16, complex128 for f64; a complex type is its own."""
+    d = as_torch_dtype(dtype)
+    if d.is_complex:
+        return d
+    return (torch.complex64
+            if d in (torch.float32, torch.bfloat16, torch.float16)
+            else torch.complex128)
+
+
 def real_dtype(dtype) -> torch.dtype:
     """The real counterpart of a value type (f32 for c64, etc.)."""
     d = as_torch_dtype(dtype)

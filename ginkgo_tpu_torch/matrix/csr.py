@@ -19,7 +19,8 @@ Strategies here:
   - ``automatical``: ``banded`` when the band census fits, else ``packed``
     when its padding stays economical, else ``classical``.
 
-Transposes, spgemm and the format conversions are not ported yet.
+``transpose``/``conj_transpose`` run on the matrix's device (BiCG needs
+them); spgemm and the format conversions are not ported yet.
 """
 
 from __future__ import annotations
@@ -214,6 +215,77 @@ class Csr(LinOp):
 
     def extract_diagonal(self):
         return self.to_coo().extract_diagonal()
+
+    # -- transposes ----------------------------------------------------------------
+    def transpose(self):
+        """Transpose on the matrix's device: a banded matrix stays banded
+        (its diagonals shifted, as the JAX package's ``_banded_transposed``
+        does), any other comes back ``classical``."""
+        return self._transposed(conj=False)
+
+    def conj_transpose(self):
+        return self._transposed(conj=True)
+
+    def _transposed(self, conj: bool):
+        n, m = self.shape
+        k = self.nnz
+        dev = self.device
+        # the entries are row-major, so a stable sort by column keeps each
+        # new row's entries in column order
+        rows, cols = self.col_idx[:k].long(), self.row_idx[:k].long()
+        order = torch.argsort(rows, stable=True)
+        vals = self.values[:k][order]
+        cap = self.values.shape[0]
+        row_idx = torch.full((cap,), m, dtype=self.row_idx.dtype, device=dev)
+        col_idx = torch.zeros(cap, dtype=self.col_idx.dtype, device=dev)
+        values = torch.zeros(cap, dtype=self.dtype, device=dev)
+        row_idx[:k] = rows[order]
+        col_idx[:k] = cols[order]
+        values[:k] = vals.conj() if conj else vals
+        row_ptr = torch.zeros(m + 1, dtype=self.row_ptr.dtype, device=dev)
+        row_ptr[1:] = torch.cumsum(torch.bincount(rows, minlength=m), dim=0)
+        kw = {}
+        if self.strategy == "banded" and self.diag_values is not None:
+            kw = self._banded_transposed(conj)
+        return Csr(row_ptr=row_ptr, col_idx=col_idx, values=values,
+                   row_idx=row_idx, shape=(m, n), nnz=k, **kw)
+
+    def _banded_transposed(self, conj: bool) -> dict:
+        """The banded layout of the transpose, on the device: negate the
+        offsets and shift each diagonal by its offset."""
+        from ..ops.spmv_banded import (LANES, plan_banded_layout,
+                                       unblock_diag_values)
+        meta = dict(self.band_meta)
+        n = meta["n"]
+        dv = unblock_diag_values(self.diag_values, meta)
+        if conj:
+            dv = dv.conj()
+        offsets = self.diag_offsets
+        pairs = sorted((-int(o), d) for d, o in enumerate(offsets))
+        new_offsets = tuple(o for o, _ in pairs)
+        D = len(offsets)
+        meta2 = plan_banded_layout(new_offsets, n)
+        G, S, NSp = meta2["G"], meta2["S"], meta2["NSp"]
+        shifted = torch.zeros((D, NSp * LANES), dtype=dv.dtype,
+                              device=dv.device)
+        for row, (_, d) in enumerate(pairs):
+            o = int(offsets[d])
+            # A[i, i+o] = dv[d, i]  =>  A^T[i, i-o] = dv[d, i-o]
+            if o >= 0:
+                shifted[row, o:n] = dv[d, :n - o]
+            else:
+                shifted[row, :n + o] = dv[d, -o:]
+        dvb = shifted.reshape(D, G, S, LANES).permute(1, 0, 2, 3).contiguous()
+        kw = dict(strategy="banded", diag_offsets=new_offsets,
+                  band_meta=tuple(sorted(meta2.items())), diag_values=dvb)
+        if self.tail_rows is not None:
+            # padding entries (row n) stay padding in the transpose
+            pad = self.tail_rows >= n
+            tv = self.tail_vals
+            kw.update(tail_rows=torch.where(pad, n, self.tail_cols),
+                      tail_cols=torch.where(pad, 0, self.tail_rows),
+                      tail_vals=tv.conj_physical() if conj else tv)
+        return kw
 
 
 def _values_numpy(values) -> np.ndarray:

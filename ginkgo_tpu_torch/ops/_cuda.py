@@ -127,8 +127,10 @@ def check(name: str, code: int):
                            f"{code} ({msg})")
 
 
-# value/vector type codes shared with csrc/*.cu
-TYPE_CODES = {"float32": 0, "float64": 1, "bfloat16": 2, "float16": 3}
+# value/vector type codes shared with csrc/*.cu; the complex ones are taken
+# by the SpMV kernels (dia_spmv.cu, sell_spmv.cu) only
+TYPE_CODES = {"float32": 0, "float64": 1, "bfloat16": 2, "float16": 3,
+              "complex64": 4, "complex128": 5}
 
 
 def type_code(dtype) -> int:

@@ -25,6 +25,18 @@
 //   * padded rows (n <= i < G*S*128) are neither computed nor written;
 //   * sums are taken in f32 for f32/bf16/f16 storage with f32 vectors and in
 //     f64 for f64 (the acc_dtype rule of spmv_pallas.py:184).
+//
+// Complex values (the TPU's dia_spmv_complex, spmv_pallas.py:246, which runs
+// _dia_kernel twice over [x_re | x_im] because Mosaic has no complex vregs):
+// the same kernel instantiated for interleaved complex types, as Ginkgo's own
+// CUDA SpMV is.  A complex64 value is one 8-byte load (float2), x is gathered
+// as float2, and each entry is one complex multiply-add in float2
+// (y_re += a_re x_re - a_im x_im, y_im += a_re x_im + a_im x_re), so each
+// matrix byte and each x element is read once a launch, with no second pass
+// and no combine.  A real matrix with a complex x scales both parts by the
+// real value; complex128 runs the same template in double2.  The sums are
+// the TPU's up to order (one fused multiply-add an entry, where the TPU
+// forms sum a_re x - sum a_im x).
 // Left to later work: staging an x window in shared memory, cp.async or TMA
 // staging of the dvb tiles, and vectorised (16-byte) bf16/f16 loads.
 
@@ -35,6 +47,7 @@
 namespace {
 
 enum TypeCode { kF32 = 0, kF64 = 1, kBF16 = 2, kF16 = 3 };
+enum ComplexTypeCode { kC64 = 4, kC128 = 5 };
 
 __device__ __forceinline__ float load_acc(const float* p) { return __ldg(p); }
 __device__ __forceinline__ double load_acc(const double* p) { return __ldg(p); }
@@ -43,6 +56,31 @@ __device__ __forceinline__ float load_acc(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ float load_acc(const __half* p) {
   return __half2float(*p);
+}
+__device__ __forceinline__ float2 load_acc(const float2* p) { return __ldg(p); }
+__device__ __forceinline__ double2 load_acc(const double2* p) {
+  return __ldg(p);
+}
+
+// acc += w * x for a real or complex value w and a vector element x of the
+// accumulator's type
+__device__ __forceinline__ void madd(float& acc, float w, float x) {
+  acc += w * x;
+}
+__device__ __forceinline__ void madd(double& acc, double w, double x) {
+  acc += w * x;
+}
+__device__ __forceinline__ void madd(float2& acc, float w, float2 x) {
+  acc.x += w * x.x;
+  acc.y += w * x.y;
+}
+__device__ __forceinline__ void madd(float2& acc, float2 w, float2 x) {
+  acc.x += w.x * x.x - w.y * x.y;
+  acc.y += w.x * x.y + w.y * x.x;
+}
+__device__ __forceinline__ void madd(double2& acc, double2 w, double2 x) {
+  acc.x += w.x * x.x - w.y * x.y;
+  acc.y += w.x * x.y + w.y * x.x;
 }
 
 template <typename V, typename X, typename Acc, int K>
@@ -59,14 +97,14 @@ dia_spmv_kernel(const V* __restrict__ dvb, const int* __restrict__ offsets,
   const V* dv = dvb + g * D * dstride + s * 128 + (i & 127);
   Acc acc[K];
 #pragma unroll
-  for (int c = 0; c < K; ++c) acc[c] = Acc(0);
+  for (int c = 0; c < K; ++c) acc[c] = Acc{};
   for (int d = 0; d < D; ++d) {
-    const Acc w = load_acc(dv + d * dstride);
+    const auto w = load_acc(dv + d * dstride);
     const long long j = i + __ldg(offsets + d);
     if (j >= 0 && j < n) {
       const X* xr = x + j * ldx;
 #pragma unroll
-      for (int c = 0; c < K; ++c) acc[c] += w * Acc(__ldg(xr + c));
+      for (int c = 0; c < K; ++c) madd(acc[c], w, Acc(__ldg(xr + c)));
     }
   }
   X* yr = y + i * ldy;
@@ -124,6 +162,21 @@ extern "C" int dia_spmv_launch(int vcode, int xcode, const void* dvb,
   if (xcode == kF64 && vcode == kF64)
     return launch_typed<double, double, double>(k, dvb, offs, D, S, n, x,
                                                 ldx, y, ldy, st);
+  if (xcode == kC64 && vcode == kC64)
+    return launch_typed<float2, float2, float2>(k, dvb, offs, D, S, n, x,
+                                                ldx, y, ldy, st);
+  if (xcode == kC64 && vcode == kF32)
+    return launch_typed<float, float2, float2>(k, dvb, offs, D, S, n, x, ldx,
+                                               y, ldy, st);
+  if (xcode == kC64 && vcode == kBF16)
+    return launch_typed<__nv_bfloat16, float2, float2>(k, dvb, offs, D, S, n,
+                                                       x, ldx, y, ldy, st);
+  if (xcode == kC64 && vcode == kF16)
+    return launch_typed<__half, float2, float2>(k, dvb, offs, D, S, n, x, ldx,
+                                                y, ldy, st);
+  if (xcode == kC128 && vcode == kC128)
+    return launch_typed<double2, double2, double2>(k, dvb, offs, D, S, n, x,
+                                                   ldx, y, ldy, st);
   return cudaErrorInvalidValue;
 }
 

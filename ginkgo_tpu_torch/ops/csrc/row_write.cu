@@ -16,10 +16,12 @@
 //   * a grid-stride loop of 16-byte (uint4) loads and stores over the part
 //     of the row where both addresses are 16-byte aligned;
 //   * scalar code of the element's own width (1, 2, 4 or 8 bytes, so one
-//     kernel serves int8, int16, bf16, f16, f32 and f64 stores) for the
-//     ragged head before the first aligned address and the tail after the
-//     last whole vector, and for the whole row when the two addresses are
-//     not aligned alike;
+//     kernel serves int8, int16, bf16, f16, f32, f64 and complex64 stores)
+//     for the ragged head before the first aligned address and the tail
+//     after the last whole vector, and for the whole row when the two
+//     addresses are not aligned alike;
+//   * a 16-byte element (complex128) is copied as two 8-byte words, so the
+//     same code serves it and no access is misaligned;
 //   * i comes from the host, which knows the Arnoldi index there: no
 //     scalar prefetch, no device-side index read.
 
@@ -71,7 +73,7 @@ cudaError_t launch_typed(void* dst, const void* src, long long n,
 }  // namespace
 
 // dst: the first element of the store's row i; src: the row; n: elements
-// in the row; esize: bytes per element (1, 2, 4 or 8).
+// in the row; esize: bytes per element (1, 2, 4, 8 or 16).
 extern "C" int row_write_launch(void* dst, const void* src, long long n,
                                 int esize, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -81,6 +83,7 @@ extern "C" int row_write_launch(void* dst, const void* src, long long n,
     case 2: return launch_typed<uint16_t>(dst, src, n, st);
     case 4: return launch_typed<uint32_t>(dst, src, n, st);
     case 8: return launch_typed<uint64_t>(dst, src, n, st);
+    case 16: return launch_typed<uint64_t>(dst, src, 2 * n, st);
     default: return cudaErrorInvalidValue;
   }
 }

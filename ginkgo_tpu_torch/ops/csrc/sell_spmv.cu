@@ -41,6 +41,16 @@
 //   * all K <= 8 right-hand sides in one pass, so the stream is read once a
 //     group of 8 columns; y written (n, K) row-major, rows < n only;
 //   * sums in f32 for f32/bf16/f16 values with f32 vectors, in f64 for f64.
+//
+// Complex values (the TPU's pell_spmv_complex, spmv_packed.py:411, two real
+// passes of _pell_kernel over [x_re | x_im] sharing the index stream): the
+// same kernel instantiated for interleaved complex types.  The stream keeps
+// a lane where the complex value is nonzero (one mask over both parts), a
+// complex64 value is one 8-byte load (float2) and x is gathered as float2;
+// each entry is one complex multiply-add in float2, so the values, the
+// columns and x are read once a launch.  A real matrix with a complex x
+// scales both parts by the real value; complex128 runs in double2.  Sums
+// are the TPU's up to order.
 // Not kept: staging the superblock's x window in shared memory, one block
 // of 1024 threads a superblock (tools/torch_sell_probe.py, K = 1): faster
 // on the FEM matrix (a 16 KB window), slower on the packed main-path
@@ -55,6 +65,7 @@
 namespace {
 
 enum TypeCode { kF32 = 0, kF64 = 1, kBF16 = 2, kF16 = 3 };
+enum ComplexTypeCode { kC64 = 4, kC128 = 5 };
 
 __device__ __forceinline__ float load_acc(const float* p) { return __ldg(p); }
 __device__ __forceinline__ double load_acc(const double* p) { return __ldg(p); }
@@ -63,6 +74,31 @@ __device__ __forceinline__ float load_acc(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ float load_acc(const __half* p) {
   return __half2float(*p);
+}
+__device__ __forceinline__ float2 load_acc(const float2* p) { return __ldg(p); }
+__device__ __forceinline__ double2 load_acc(const double2* p) {
+  return __ldg(p);
+}
+
+// acc += w * x for a real or complex value w and a vector element x of the
+// accumulator's type
+__device__ __forceinline__ void madd(float& acc, float w, float x) {
+  acc += w * x;
+}
+__device__ __forceinline__ void madd(double& acc, double w, double x) {
+  acc += w * x;
+}
+__device__ __forceinline__ void madd(float2& acc, float w, float2 x) {
+  acc.x += w * x.x;
+  acc.y += w * x.y;
+}
+__device__ __forceinline__ void madd(float2& acc, float2 w, float2 x) {
+  acc.x += w.x * x.x - w.y * x.y;
+  acc.y += w.x * x.y + w.y * x.x;
+}
+__device__ __forceinline__ void madd(double2& acc, double2 w, double2 x) {
+  acc.x += w.x * x.x - w.y * x.y;
+  acc.y += w.x * x.y + w.y * x.x;
 }
 
 template <typename V, typename X, typename Acc, int K, bool kUnit>
@@ -82,12 +118,14 @@ sell_spmv_kernel(const V* __restrict__ sv, const int16_t* __restrict__ sc,
   const V* v = sv + start + (r & 31);
   const int16_t* c16 = sc + start + (r & 31);
   constexpr int kUnroll = K <= 2 ? 8 : 4;     // steps of j a pass
+  using W = decltype(load_acc(v));            // a value as it is summed
   Acc acc[K];
 #pragma unroll
-  for (int c = 0; c < K; ++c) acc[c] = Acc(0);
+  for (int c = 0; c < K; ++c) acc[c] = Acc{};
   long long j = 0;
   for (; j + kUnroll <= width; j += kUnroll) {
-    Acc w[kUnroll], xv[kUnroll][K];
+    W w[kUnroll];
+    Acc xv[kUnroll][K];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       w[u] = load_acc(v + (j + u) * 32);
@@ -95,21 +133,21 @@ sell_spmv_kernel(const V* __restrict__ sv, const int16_t* __restrict__ sc,
       const bool ok = (unsigned long long)col < (unsigned long long)m;
       const X* xr = x + (ok ? col : 0) * sx;
 #pragma unroll
-      for (int c = 0; c < K; ++c) xv[u][c] = ok ? Acc(__ldg(xr + c)) : Acc(0);
+      for (int c = 0; c < K; ++c) xv[u][c] = ok ? Acc(__ldg(xr + c)) : Acc{};
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
 #pragma unroll
-      for (int c = 0; c < K; ++c) acc[c] += w[u] * xv[u][c];
+      for (int c = 0; c < K; ++c) madd(acc[c], w[u], xv[u][c]);
     }
   }
   for (; j < width; ++j) {
-    const Acc w = load_acc(v + j * 32);
+    const W w = load_acc(v + j * 32);
     const long long col = base + __ldg(c16 + j * 32);
     if ((unsigned long long)col < (unsigned long long)m) {
       const X* xr = x + col * sx;
 #pragma unroll
-      for (int c = 0; c < K; ++c) acc[c] += w * Acc(__ldg(xr + c));
+      for (int c = 0; c < K; ++c) madd(acc[c], w, Acc(__ldg(xr + c)));
     }
   }
   if (r >= n) return;
@@ -180,6 +218,21 @@ extern "C" int sell_spmv_launch(int vcode, int xcode, const void* sv,
   if (xcode == kF64 && vcode == kF64)
     return launch_typed<double, double, double>(k, sv, c, p, xb, n_slices, n,
                                                 m, x, ldx, y, ldy, st);
+  if (xcode == kC64 && vcode == kC64)
+    return launch_typed<float2, float2, float2>(k, sv, c, p, xb, n_slices, n,
+                                                m, x, ldx, y, ldy, st);
+  if (xcode == kC64 && vcode == kF32)
+    return launch_typed<float, float2, float2>(k, sv, c, p, xb, n_slices, n,
+                                               m, x, ldx, y, ldy, st);
+  if (xcode == kC64 && vcode == kBF16)
+    return launch_typed<__nv_bfloat16, float2, float2>(
+        k, sv, c, p, xb, n_slices, n, m, x, ldx, y, ldy, st);
+  if (xcode == kC64 && vcode == kF16)
+    return launch_typed<__half, float2, float2>(k, sv, c, p, xb, n_slices, n,
+                                                m, x, ldx, y, ldy, st);
+  if (xcode == kC128 && vcode == kC128)
+    return launch_typed<double2, double2, double2>(k, sv, c, p, xb, n_slices,
+                                                   n, m, x, ldx, y, ldy, st);
   return cudaErrorInvalidValue;
 }
 

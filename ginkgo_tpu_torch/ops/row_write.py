@@ -52,9 +52,9 @@ def row_write_cuda(store, i, row):
         raise IndexError(f"row_write: row {i} outside store of "
                          f"{store.shape[0]} rows")
     esize = store.element_size()
-    if esize not in (1, 2, 4, 8):
+    if esize not in (1, 2, 4, 8, 16):
         raise TypeError(f"row_write: element size {esize} (dtype "
-                        f"{store.dtype}) is not 1, 2, 4 or 8 bytes")
+                        f"{store.dtype}) is not 1, 2, 4, 8 or 16 bytes")
     n = row.numel()
     if n == 0:
         return store

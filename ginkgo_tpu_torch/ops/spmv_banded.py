@@ -9,6 +9,11 @@ layout ``dvb (G, D, S, 128)``.  This module holds the host layout planner
 
 The kernel is bounded by bytes: it streams dvb once per group of <= 8
 right-hand sides, plus x and y.  See the source for its design.
+
+Complex values take the same kernel instantiated for interleaved complex
+types (``dia_spmv_complex_cuda``, counted apart): it replaces the TPU's
+``dia_spmv_complex`` (``spmv_pallas.py:246``), which splits the values into
+re/im planes for two real passes because Mosaic has no complex vregs.
 """
 
 from __future__ import annotations
@@ -31,6 +36,23 @@ KERNEL_DTYPES = {(torch.float32, torch.float32),
                  (torch.bfloat16, torch.float32),
                  (torch.float16, torch.float32),
                  (torch.float64, torch.float64)}
+# and its complex instantiations: complex64 math for a complex64 matrix or
+# a real f32/bf16/f16 one with a complex64 vector, complex128 for complex128
+COMPLEX_KERNEL_DTYPES = {(torch.complex64, torch.complex64),
+                         (torch.float32, torch.complex64),
+                         (torch.bfloat16, torch.complex64),
+                         (torch.float16, torch.complex64),
+                         (torch.complex128, torch.complex128)}
+_F32ISH = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def kernel_vector(value_dtype, b):
+    """``b`` as the SpMV kernels take it: with a complex64 matrix a real
+    f32/bf16/f16 vector is cast to complex64 first, as the JAX package's
+    ``dia_spmv_tpu``/``pell_spmv_tpu`` do (``_c64_capable``)."""
+    if value_dtype == torch.complex64 and b.dtype in _F32ISH:
+        return b.to(torch.complex64)
+    return b
 
 
 def plan_banded_layout(offsets, n, *, S=128, NB=4):
@@ -92,21 +114,51 @@ def _offsets_on(offsets: tuple, device: torch.device):
 
 @register("dia_spmv", "cuda")
 def dia_spmv_cuda(offsets, dvb, meta, b):
-    """Banded SpMV/SpMM on the CUDA kernel, one launch per <= 8 columns.
+    """Banded SpMV/SpMM on the CUDA kernel, one launch per <= 8 columns;
+    complex operands go to its complex instantiation.
 
     A tensor on the CPU takes the plain version; on a CUDA device this
     launches the kernel or raises — it never falls back."""
+    b = kernel_vector(dvb.dtype, b)
     if b.device.type != "cuda":
         return dia_spmv_reference(offsets, dvb, meta, b)
-    n = meta["n"]
     if b.is_complex() or dvb.is_complex():
-        raise NotImplementedError(
-            "complex banded SpMV on CUDA needs the re/im plane split of "
-            "ginkgo_tpu/ops/spmv_pallas.py:246-292, which a later slice of "
-            "the port brings (ROADMAP.md, queue 2 item 1)")
-    if (dvb.dtype, b.dtype) not in KERNEL_DTYPES:
+        return dia_spmv_complex_cuda(offsets, dvb, meta, b)
+    y = _output(offsets, dvb, meta, b, KERNEL_DTYPES)
+    if y.numel() == 0:
+        return y
+    for c0 in range(0, b.shape[1], MAX_RHS):
+        _launch(offsets, dvb, meta, b, y, c0)
+        dia_spmv_cuda.launches += 1
+    return y
+
+
+def dia_spmv_complex_cuda(offsets, dvb, meta, b):
+    """Complex banded SpMV/SpMM on the kernel's complex instantiation
+    (``COMPLEX_KERNEL_DTYPES``), one launch per <= 8 columns: the
+    counterpart of ``ginkgo_tpu/ops/spmv_pallas.py::dia_spmv_complex``.
+
+    A tensor on the CPU takes the plain version; on a CUDA device this
+    launches the kernel or raises."""
+    b = kernel_vector(dvb.dtype, b)
+    if b.device.type != "cuda":
+        return dia_spmv_reference(offsets, dvb, meta, b)
+    y = _output(offsets, dvb, meta, b, COMPLEX_KERNEL_DTYPES)
+    if y.numel() == 0:
+        return y
+    for c0 in range(0, b.shape[1], MAX_RHS):
+        _launch(offsets, dvb, meta, b, y, c0)
+        dia_spmv_complex_cuda.launches += 1
+    return y
+
+
+def _output(offsets, dvb, meta, b, dtypes):
+    """Check that the operands fit the kernel and return the (n, k)
+    output; raises on what the kernel does not take."""
+    n = meta["n"]
+    if (dvb.dtype, b.dtype) not in dtypes:
         raise TypeError(f"dia_spmv kernel takes (values, vector) dtypes "
-                        f"{sorted(map(str, KERNEL_DTYPES))}, got "
+                        f"{sorted(map(str, dtypes))}, got "
                         f"({dvb.dtype}, {b.dtype})")
     G, D, S, lanes = dvb.shape
     if (b.ndim != 2 or b.shape[0] != n or lanes != LANES
@@ -118,25 +170,25 @@ def dia_spmv_cuda(offsets, dvb, meta, b):
         raise ValueError(f"dia_spmv: dvb on {dvb.device}, b on {b.device}")
     if not (dvb.is_contiguous() and b.is_contiguous()):
         raise ValueError("dia_spmv: dvb and b must be contiguous")
-    k = b.shape[1]
-    y = torch.empty((n, k), dtype=b.dtype, device=b.device)
-    if n == 0 or k == 0:
-        return y
+    return torch.empty((n, b.shape[1]), dtype=b.dtype, device=b.device)
+
+
+def _launch(offsets, dvb, meta, b, y, c0):
+    """One launch for columns ``[c0, c0 + 8)`` of ``b`` into ``y``."""
+    n, k = meta["n"], b.shape[1]
     offs = _offsets_on(tuple(int(o) for o in offsets), b.device)
-    lib = _cuda.library("dia_spmv")
-    vcode, xcode = _cuda.type_code(dvb.dtype), _cuda.type_code(b.dtype)
+    G, D, S, _ = dvb.shape
     esize = b.element_size()
+    lib = _cuda.library("dia_spmv")
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
-        for c0 in range(0, k, MAX_RHS):
-            kc = min(MAX_RHS, k - c0)
-            code = lib.dia_spmv_launch(
-                vcode, xcode, dvb.data_ptr(), offs.data_ptr(), D, S, n,
-                b.data_ptr() + c0 * esize, k, y.data_ptr() + c0 * esize, k,
-                kc, stream)
-            _cuda.check("dia_spmv", code)
-            dia_spmv_cuda.launches += 1
-    return y
+        code = lib.dia_spmv_launch(
+            _cuda.type_code(dvb.dtype), _cuda.type_code(b.dtype),
+            dvb.data_ptr(), offs.data_ptr(), D, S, n,
+            b.data_ptr() + c0 * esize, k, y.data_ptr() + c0 * esize, k,
+            min(MAX_RHS, k - c0), stream)
+    _cuda.check("dia_spmv", code)
 
 
-dia_spmv_cuda.launches = 0     # kernel launches since the last reset
+dia_spmv_cuda.launches = 0           # kernel launches since the last reset
+dia_spmv_complex_cuda.launches = 0   # complex launches since the last reset

@@ -18,6 +18,10 @@ runs ``csrc/sell_spmv.cu`` over the slab's compact stream
 registry takes that stream, and its plain version is
 ``spmv_sell.sell_spmv_reference``.
 
+Complex values take the kernel's complex instantiation
+(``pell_spmv_complex_cuda``, counted apart), in place of the TPU's re/im
+plane split ``pell_spmv_complex``.
+
 Entries that overflow the window or the slot budget spill to a COO tail
 handled by ``coo_spmv``.
 """
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import spmv_sell
+from . import spmv_banded, spmv_sell
 from .registry import register
 from .spmv_sell import sell_spmv_reference
 
@@ -211,11 +215,10 @@ def pell_spmv_reference(vals, idx, qw, xbase_row, meta_items, b):
     return torch.stack(outs, dim=1)
 
 
-# (value storage, vector) dtypes the kernel takes
-KERNEL_DTYPES = {(torch.float32, torch.float32),
-                 (torch.bfloat16, torch.float32),
-                 (torch.float16, torch.float32),
-                 (torch.float64, torch.float64)}
+# (value storage, vector) dtypes the kernel takes, and its complex
+# instantiations (the same pairs as kernel A's)
+KERNEL_DTYPES = spmv_banded.KERNEL_DTYPES
+COMPLEX_KERNEL_DTYPES = spmv_banded.COMPLEX_KERNEL_DTYPES
 
 register("pell_spmv", "reference")(sell_spmv_reference)
 
@@ -224,27 +227,49 @@ register("pell_spmv", "reference")(sell_spmv_reference)
 def pell_spmv_cuda(sell, sell_meta, b):
     """Kernel B: the packed SpMV/SpMM over the layout's compact stream
     (``spmv_sell.sell_from_packed``) on ``csrc/sell_spmv.cu``, one launch
-    per <= 8 columns.
+    per <= 8 columns; complex operands go to its complex instantiation.
 
     A tensor on the CPU takes the plain version; on a CUDA device this
     launches the kernel or raises — it never falls back."""
+    sv = sell["sv"]
+    b = spmv_banded.kernel_vector(sv.dtype, b)
     if b.device.type != "cuda":
         return sell_spmv_reference(sell, sell_meta, b)
-    sv = sell["sv"]
     if b.is_complex() or sv.is_complex():
-        raise NotImplementedError(
-            "complex packed SpMV on CUDA needs the re/im plane split of "
-            "ginkgo_tpu/ops/spmv_packed.py:411-447, which a later slice of "
-            "the port brings (ROADMAP.md, queue 2 item 2)")
-    if (sv.dtype, b.dtype) not in KERNEL_DTYPES:
-        raise TypeError(f"pell_spmv kernel takes (values, vector) dtypes "
-                        f"{sorted(map(str, KERNEL_DTYPES))}, got "
-                        f"({sv.dtype}, {b.dtype})")
-    y = spmv_sell.prepare(sell, sell_meta, b, "pell_spmv")
+        return pell_spmv_complex_cuda(sell, sell_meta, b)
+    y = _output(sell, sell_meta, b, KERNEL_DTYPES)
     for c0 in range(0, b.shape[1], spmv_sell.MAX_RHS):
         spmv_sell.launch(sell, sell_meta, b, y, c0)
         pell_spmv_cuda.launches += 1
     return y
 
 
-pell_spmv_cuda.launches = 0    # kernel launches since the last reset
+def pell_spmv_complex_cuda(sell, sell_meta, b):
+    """Complex packed SpMV/SpMM on the complex instantiation of
+    ``csrc/sell_spmv.cu`` (``COMPLEX_KERNEL_DTYPES``), one launch per <= 8
+    columns: the counterpart of ``ginkgo_tpu/ops/spmv_packed.py::
+    pell_spmv_complex``.
+
+    A tensor on the CPU takes the plain version; on a CUDA device this
+    launches the kernel or raises."""
+    b = spmv_banded.kernel_vector(sell["sv"].dtype, b)
+    if b.device.type != "cuda":
+        return sell_spmv_reference(sell, sell_meta, b)
+    y = _output(sell, sell_meta, b, COMPLEX_KERNEL_DTYPES)
+    for c0 in range(0, b.shape[1], spmv_sell.MAX_RHS):
+        spmv_sell.launch(sell, sell_meta, b, y, c0)
+        pell_spmv_complex_cuda.launches += 1
+    return y
+
+
+def _output(sell, sell_meta, b, dtypes):
+    sv = sell["sv"]
+    if (sv.dtype, b.dtype) not in dtypes:
+        raise TypeError(f"pell_spmv kernel takes (values, vector) dtypes "
+                        f"{sorted(map(str, dtypes))}, got "
+                        f"({sv.dtype}, {b.dtype})")
+    return spmv_sell.prepare(sell, sell_meta, b, "pell_spmv")
+
+
+pell_spmv_cuda.launches = 0           # kernel launches since the last reset
+pell_spmv_complex_cuda.launches = 0   # complex launches since the last reset

@@ -14,7 +14,8 @@ wrappers hand to ``csrc/sell_spmv.cu``:
 - ``sp`` ``(n_slices + 1,)`` int64: slice offsets, ``32 * width`` entries a
   slice, ``width`` the longest row of the slice;
 - entry j of the slice's lane l at ``sp[s] + 32 j + l``;
-- ``sv``: values in the slab's value dtype;
+- ``sv``: values in the slab's value dtype (complex ones interleaved, as
+  torch stores them);
 - ``sc``: int16 column relative to the superblock's x window,
   ``col - 128 * xbase[s // 32]``, in ``[0, XW)`` with ``XW <= 16384``;
 - ``xbase``: the slab's ``xbase_row`` (int32, one a superblock).
@@ -47,7 +48,9 @@ def _compact(vals, rel_col, xbase_row, meta_items):
     n, m, Gs, Wv, XW = (meta[key] for key in ("n", "m", "Gs", "Wv", "XW"))
     n_slices = -(-n // SLICE)
     # the kept lanes, row by row: row r = 1024 t + 128 b + lane reads
-    # vreg (t*8 + b)*Wv + v, sublane s, in the order (v, s)
+    # vreg (t*8 + b)*Wv + v, sublane s, in the order (v, s); one mask over
+    # both parts of a complex value, so an entry with a zero real part
+    # keeps its imaginary part
     keep = (vals != 0).reshape(Gs, 8, Wv, 8, 128).permute(0, 1, 4, 2, 3)
     keep = keep.reshape(Gs * _SB_ROWS, Wv * 8)[:n_slices * SLICE]
     row, pos = keep.nonzero(as_tuple=True)       # row-major: slab order

@@ -49,7 +49,9 @@ def _xdtype(vdtype):
 
 
 def _rel_err(got, want):
-    got, want = got.double(), want.double()
+    wide = (torch.complex128 if got.is_complex() or want.is_complex()
+            else torch.float64)
+    got, want = got.to(wide), want.to(wide)
     return float((got - want).abs().max()) / max(float(want.abs().max()),
                                                  1e-300)
 
@@ -131,6 +133,117 @@ def test_sell_kernel_matches_plain(dev, layout, k, vdtype):
     assert _rel_err(y, slab_plain(*arrays, meta, x)) <= TOL[vdtype]
 
 
+# (values, vector) pairs of the complex instantiations of kernels A and B
+COMPLEX_PAIRS = [(torch.complex64, torch.complex64),
+                 (torch.float32, torch.complex64),
+                 (torch.bfloat16, torch.complex64),
+                 (torch.float16, torch.complex64),
+                 (torch.complex64, torch.float32),
+                 (torch.complex128, torch.complex128)]
+
+
+def _complex_values(t, vdtype, seed):
+    """Real values made complex with an imaginary part of the same size
+    (a third of them purely imaginary), in ``vdtype``."""
+    if not vdtype.is_complex:
+        return t.to(vdtype)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    im = torch.randn(t.shape, generator=g, dtype=torch.float64).to(t.device)
+    re = t.double() * (torch.arange(t.numel(), device=t.device)
+                       .reshape(t.shape) % 3 != 0)
+    return torch.complex(re, im * (t != 0)).to(vdtype)
+
+
+def _complex_tol(vdtype, xdtype):
+    return 1e-12 if torch.complex128 in (vdtype, xdtype) else 1e-5
+
+
+def _result_dtype(xdtype):
+    """A real f32 vector is cast to complex64 first."""
+    return torch.complex64 if xdtype == torch.float32 else xdtype
+
+
+@pytest.mark.parametrize("vdtype,xdtype", COMPLEX_PAIRS, ids=str)
+@pytest.mark.parametrize("k", [1, 3, 8, 9])
+def test_dia_complex_kernel_matches_plain(dev, vdtype, xdtype, k):
+    n, offsets = 3000, (-257, -129, -1, 0, 1, 129, 257)
+    meta, dvb = _banded(n, offsets, dev, torch.float64)
+    dvb = _complex_values(dvb, vdtype, k)
+    x = torch.randn((n, k), dtype=torch.complex128, device=dev)
+    x = (x.real if not xdtype.is_complex else x).to(xdtype)
+    before = (spmv_banded.dia_spmv_cuda.launches,
+              spmv_banded.dia_spmv_complex_cuda.launches)
+    y = spmv_banded.dia_spmv_cuda(offsets, dvb, meta, x)
+    torch.cuda.synchronize()
+    assert spmv_banded.dia_spmv_cuda.launches == before[0]
+    assert spmv_banded.dia_spmv_complex_cuda.launches - before[1] \
+        == -(-k // 8)
+    assert y.dtype == _result_dtype(xdtype)
+    want = spmv_banded.dia_spmv_reference(offsets, dvb, meta, x.to(y.dtype))
+    assert _rel_err(y, want) <= _complex_tol(vdtype, xdtype)
+
+
+@pytest.mark.parametrize("vdtype,xdtype", COMPLEX_PAIRS, ids=str)
+@pytest.mark.parametrize("k", [1, 3, 8, 9])
+def test_sell_complex_kernel_matches_plain(dev, vdtype, xdtype, k):
+    """Kernel B's complex instantiation over the compact stream of a
+    complex slab (an entry whose real part is 0 kept), against the
+    stream's plain version and the slab's own."""
+    A = _packed_csr(dev)
+    arrays = [t.to(dev) for t in (A.pell_vals, A.pell_idx, A.pell_qw,
+                                  A.pell_xbase)]
+    arrays[0] = _complex_values(arrays[0], vdtype, k)
+    sell, smeta = spmv_sell.sell_from_packed(*arrays, A.pell_meta)
+    assert dict(smeta)["entries"] == int((arrays[0] != 0).sum())
+    x = torch.randn((A.shape[1], k), dtype=torch.complex128, device=dev)
+    x = (x.real if not xdtype.is_complex else x).to(xdtype)
+    before = spmv_packed.pell_spmv_complex_cuda.launches
+    y = spmv_packed.pell_spmv_cuda(sell, smeta, x)
+    torch.cuda.synchronize()
+    assert spmv_packed.pell_spmv_complex_cuda.launches - before \
+        == -(-k // 8)
+    assert y.dtype == _result_dtype(xdtype)
+    xc = x.to(y.dtype)
+    tol = _complex_tol(vdtype, xdtype)
+    assert _rel_err(y, spmv_sell.sell_spmv_reference(sell, smeta, xc)) <= tol
+    assert _rel_err(y, spmv_packed.pell_spmv_reference(
+        *arrays, A.pell_meta, xc)) <= tol
+
+
+def _small_complex_system(kind, dev):
+    """A few thousand rows in complex128: the shifted stencil
+    A = P (1 + 0.02i) + 0.5i I, banded or permuted (packed)."""
+    d = (stencil_3d(14, points=27) if kind == "banded"
+         else permute_locally(stencil_3d(16, 16, 8, points=27)))
+    vals = d.values * (1 + 0.02j) + 0.5j * (d.row_idx == d.col_idx)
+    A = gtt.Csr.from_data(gtt.MatrixData(d.shape, d.row_idx, d.col_idx,
+                                         vals), device=dev)
+    assert A.strategy == kind
+    return A
+
+
+@pytest.mark.parametrize("solver", ["Bicg", "Cgs", "Gcr", "Idr", "Gmres"])
+@pytest.mark.parametrize("kind", ["banded", "packed"])
+def test_complex_solvers_on_card_match_host(dev, kind, solver):
+    """complex128 solves on the card (the complex kernels A or B, kernel F
+    in 16-byte elements for Gcr and Gmres) against the host."""
+    import ginkgo_tpu_torch.solver as tsolver
+    out = []
+    for device in (dev, torch.device("cpu")):
+        A = _small_complex_system(kind, device)
+        rhs = torch.ones((A.shape[0], 2), dtype=torch.complex128,
+                         device=device)
+        rhs[:, 1] = torch.arange(A.shape[0], device=device) % 7 - 3j
+        kw = {"krylov_dim": 30} if solver in ("Gcr", "Gmres") else {}
+        res = getattr(tsolver, solver).solve(
+            A, rhs, criteria=Iteration(500) | ResidualNorm(1e-10), **kw)
+        out.append(res)
+    rg, rc = out
+    assert bool(rg.converged.all())
+    assert torch.equal(rg.iterations.cpu(), rc.iterations)
+    torch.testing.assert_close(rg.x.cpu(), rc.x, rtol=1e-10, atol=1e-10)
+
+
 def test_wrappers_raise_instead_of_falling_back(dev):
     n, offsets = 1000, (-1, 0, 1)
     meta, dvb = _banded(n, offsets, dev, torch.float32)
@@ -139,18 +252,33 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         spmv_banded.dia_spmv_cuda(offsets, dvb, meta, x.double())
     with pytest.raises(ValueError, match="contiguous"):
         spmv_banded.dia_spmv_cuda(offsets, dvb, meta, x.t().contiguous().t())
-    with pytest.raises(NotImplementedError, match="re/im"):
-        spmv_banded.dia_spmv_cuda(offsets, dvb.to(torch.complex64), meta,
-                                  x.to(torch.complex64))
+    # complex operands run the kernel's complex instantiation (no plane
+    # split, no fallback); a pair it does not take still raises
+    c64 = dvb.to(torch.complex64)
+    xc = x.to(torch.complex64)
+    before = spmv_banded.dia_spmv_complex_cuda.launches
+    y = spmv_banded.dia_spmv_cuda(offsets, c64, meta, xc)
+    torch.cuda.synchronize()
+    assert spmv_banded.dia_spmv_complex_cuda.launches - before == 1
+    assert _rel_err(y, spmv_banded.dia_spmv_reference(offsets, c64, meta,
+                                                      xc)) <= 1e-5
+    with pytest.raises(TypeError):
+        spmv_banded.dia_spmv_cuda(offsets, c64, meta, x.double())
     A = _packed_csr(dev)
     xb = torch.ones((A.shape[1], 1), dtype=torch.float64, device=dev)
     f32 = dict(A.sell, sv=A.sell["sv"].float())
     with pytest.raises(TypeError):
         spmv_packed.pell_spmv_cuda(f32, A.sell_meta, xb)
-    with pytest.raises(NotImplementedError, match="re/im"):
-        spmv_packed.pell_spmv_cuda(
-            dict(A.sell, sv=A.sell["sv"].to(torch.complex128)), A.sell_meta,
-            xb.to(torch.complex128))
+    c128 = dict(A.sell, sv=A.sell["sv"].to(torch.complex128))
+    before = spmv_packed.pell_spmv_complex_cuda.launches
+    y = spmv_packed.pell_spmv_cuda(c128, A.sell_meta, xb.to(torch.complex128))
+    torch.cuda.synchronize()
+    assert spmv_packed.pell_spmv_complex_cuda.launches - before == 1
+    assert _rel_err(y, spmv_sell.sell_spmv_reference(
+        c128, A.sell_meta, xb.to(torch.complex128))) <= 1e-12
+    with pytest.raises(TypeError):
+        spmv_packed.pell_spmv_cuda(dict(A.sell, sv=A.sell["sv"].to(
+            torch.complex64)), A.sell_meta, xb)
     with pytest.raises(ValueError, match="one device"):
         spmv_packed.pell_spmv_cuda(dict(A.sell, sp=A.sell["sp"].cpu()),
                                    A.sell_meta, xb)
@@ -430,12 +558,15 @@ def test_packed_parilut_on_card_matches_host(dev, case):
 
 # -- kernel F: the in-place Krylov-basis row write -----------------------------
 ROW_DTYPES = [torch.float32, torch.float64, torch.bfloat16, torch.float16,
-              torch.int16, torch.int8]
+              torch.int16, torch.int8, torch.complex64, torch.complex128]
 
 
 def _random_rows(shape, dtype, seed):
-    vals = np.random.default_rng(seed).standard_normal(shape)
-    if not dtype.is_floating_point:
+    g = np.random.default_rng(seed)
+    vals = g.standard_normal(shape)
+    if dtype.is_complex:
+        vals = vals + 1j * g.standard_normal(shape)
+    elif not dtype.is_floating_point:
         vals = np.clip(np.round(vals * 40), -120, 120)
     return torch.from_numpy(vals).to(dtype)
 

@@ -45,7 +45,8 @@ def _imported_modules(path):
 
 
 def test_source_names_no_jax_import():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [REPO / name for name in (
+        "chip_smoke.py", "bench_torch.py", "graft_entry_torch.py")]
     assert len(files) > 20
     for path in files:
         for mod in _imported_modules(path):
@@ -106,3 +107,9 @@ def test_type_codes_match_sources():
     assert [_cuda.type_code(t) for t in (torch.float32, torch.float64,
                                          torch.bfloat16, torch.float16)] \
         == [0, 1, 2, 3]
+    # the complex codes of the SpMV kernels' complex instantiations
+    for name in ("dia_spmv", "sell_spmv"):
+        src = (_cuda.SRC_DIR / f"{name}.cu").read_text()
+        assert "enum ComplexTypeCode { kC64 = 4, kC128 = 5 };" in src
+    assert [_cuda.type_code(t) for t in (torch.complex64,
+                                         torch.complex128)] == [4, 5]
