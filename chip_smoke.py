@@ -21,12 +21,14 @@ exits non-zero:
    and, against the stream's plain version and the slab's, on the locally
    permuted 1,048,576-row stencil and on the ILU system's FEM matrix, with
    the stream's slots, pad ratio and repack milliseconds beside the slab's;
-5. kernel C (packed exact triangular solve), the same on small random
-   lower and upper factors (f32 and f64 right-hand sides) and on the L
-   factor of the ILU system below, timed beside its byte bound, its plain
-   version and cuSPARSE's triangular solve; four of its block inverses are
-   checked against an f64 inverse, and four more built with TF32 turned
-   on by the caller;
+5. kernel C (packed exact triangular solve: a cluster of 8 CTAs walking
+   the chain of 256-row blocks), the same on small random lower and upper
+   factors (f32 and f64 right-hand sides) and on the L factor of the ILU
+   system below, timed beside its byte bound, its plain version and
+   cuSPARSE's triangular solve, with the plan's P, Wv, nb, its chain depth
+   (counted from the cross slots), ms a block and the cluster and ring the
+   launch uses; four of its block inverses are checked against an f64
+   inverse, and four more built with TF32 turned on by the caller;
 6. main path, banded: ``Csr.from_data`` of the nx=160 stencil on the card
    (``banded`` layout), Jacobi-CG to the tolerance below, with kernel A's
    launch count and the true residual recomputed independently;
@@ -59,7 +61,7 @@ exits non-zero:
    (m_pad, n) and (m_pad, n, 3) layouts, bit for bit the plain ``copy_``,
    in place and allocating nothing; timed at n = 4,096,000 f32 beside its
    byte bound, its plain version and ``store[i].copy_(row)``, the kernel
-   and ``copy_`` in five rounds of turns;
+   (a ring of TMA bulk copies) and ``copy_`` in five rounds of turns;
 15. main path, GMRES: ``Gmres.solve`` on the nx=160 stencil (f32,
    krylov_dim 100, CGS2, ``ResidualNorm(1e-3)``), then ``CbGmres`` with a
    bf16 (``reduce1``) and an int16 (``integer``) basis, each converged to
@@ -631,6 +633,30 @@ def tri_needed_bytes_ops(arrays, n, nb):
     return nbytes, 2 * inv_entries + 2 * cross, inv_entries, cross
 
 
+def tri_chain(arrays, meta_items):
+    """The plan's chain of blocks, counted from its cross slots: block t
+    needs every earlier block that one of its nonzero slots reads, so the
+    longest such path is the number of steps no schedule can overlap."""
+    meta = dict(meta_items)
+    nb, P = meta["nb"], meta["P"]
+    ci = arrays["crossi"].reshape(nb, -1).long().cpu()
+    live = arrays["crossv"].reshape(nb, -1).cpu() != 0
+    src = torch.arange(nb)[:, None] - P + torch.div(ci, 256,
+                                                    rounding_mode="floor")
+    live &= src >= 0
+    depth = np.ones(nb, np.int64)
+    after_previous = 0
+    for t in range(nb):
+        deps = src[t][live[t]].unique().numpy()
+        if deps.size:
+            depth[t] = 1 + depth[deps].max()
+            after_previous += int(deps.max() == t - 1)
+    dist = (torch.arange(nb)[:, None] - src)[live]
+    return dict(chain_depth=int(depth.max()),
+                blocks_reading_previous=after_previous,
+                cross_at_distance_1=int((dist == 1).sum()))
+
+
 def phase_kernel_c(op, L):
     worst = {}
     for n, per, reach, seed, scale in SMALL_FACTORS:
@@ -670,7 +696,11 @@ def phase_kernel_c(op, L):
     inv_err_tf32 = inverse_check_tf32_on()
     nbytes, nops, inv_entries, cross = tri_needed_bytes_ops(arrays, n, nb)
     bms, by = bound(nbytes, nops)
-    say("kernel_c", meta=meta, k=1, ms=ms, plain_ms=plain, library_ms=lib,
+    cfg = tri_packed.packed_trisolve_config(meta_items, 1)
+    say("kernel_c", meta=meta, k=1, P=meta["P"], Wv=meta["Wv"], nb=nb,
+        **tri_chain(arrays, meta_items), ms=ms, ms_per_block=ms / nb,
+        cluster=cfg["cluster"], ring_stages=cfg["stages"],
+        smem_bytes=cfg["smem_bytes"], plain_ms=plain, library_ms=lib,
         bound_ms=bms, bound_by=by, bytes=nbytes,
         inverse_entries=inv_entries, cross_entries=cross,
         effective_GBps=nbytes / (ms * 1e-3) / 1e9,

@@ -5,8 +5,9 @@ counterpart of the Pallas kernel ``kern`` of
 The store is a contiguous (m_pad, n) or (m_pad, n, k) tensor and is
 mutated in place; the row has the store's dtype and the shape of one of
 its rows.  On a CUDA store the write is the hand-written kernel
-``csrc/row_write.cu`` (a copy with 16-byte vector loads and stores); on a
-CPU store it is the plain ``store[i].copy_(row)``.
+``csrc/row_write.cu`` (TMA bulk copies through a ring in shared memory,
+the ragged ends in scalar code); on a CPU store it is the plain
+``store[i].copy_(row)``.
 
 The JAX package keeps its Pallas write behind ``GINKGO_TPU_PALLAS_WRITE=1``
 because on the TPU the (m, n) <-> (m*n/128, 128) reshape around the

@@ -20,15 +20,20 @@ an ELL gather from a carry window:
 This module holds the host planner (verbatim from the JAX package, with
 the same constants), the plain torch version ``packed_trisolve_reference``
 and the wrapper of the CUDA kernel ``csrc/tri_packed.cu``, which replaces
-the Pallas kernel ``ginkgo_tpu/ops/tri_packed.py::_tri_kernel``.  The kernel
-is bounded by bytes: it streams the lower triangles of the (nb, S, S) f32
-inverses once per apply (~n*S/2*4 bytes), plus the nonzero cross slots and
-the vectors.  Upper factors run as
-reversed lower systems.  f32; f64 right-hand sides are solved in f32 and
-cast back, exactly the plain version's arithmetic.
+the Pallas kernel ``ginkgo_tpu/ops/tri_packed.py::_tri_kernel``.  The bytes
+it needs are the lower triangles of the (nb, S, S) f32 inverses
+(~n*S/2*4 bytes), the nonzero cross slots and the vectors, but its time is
+the chain of blocks: a cluster of 8 CTAs keeps the carry window on chip,
+takes each block's inverse rows, cross slots and b from a ring filled
+ahead of the chain, and passes right-hand-side and x slices between its
+CTAs by TMA copies between their shared memories (the source says how).
+Upper factors run as reversed lower systems.  f32; f64 right-hand sides
+are solved in f32 and cast back, exactly the plain version's arithmetic.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -198,7 +203,8 @@ def packed_trisolve_reference(arrays, meta_items, b):
 @register("packed_trisolve", "cuda")
 def packed_trisolve_cuda(arrays, meta_items, b):
     """Packed exact trisolve on the CUDA kernel: one launch per call (one
-    CTA per group of 8 columns).
+    cluster of 8 CTAs per group of up to 8 columns; see
+    ``packed_trisolve_config``).
 
     A tensor on the CPU takes the plain version; on a CUDA device this
     launches the kernel or raises — it never falls back."""
@@ -227,6 +233,10 @@ def packed_trisolve_cuda(arrays, meta_items, b):
         raise ValueError("packed_trisolve: plan and b must share one device")
     if not all(t.is_contiguous() for t in (inv, ci, cv, nwv, b)):
         raise ValueError("packed_trisolve: plan and b must be contiguous")
+    if any(t.data_ptr() % 16 for t in (inv, ci, cv)):
+        raise ValueError("packed_trisolve: the kernel copies the plan in "
+                         "16-byte units; inv, crossi and crossv must start "
+                         "on 16-byte boundaries")
     bf = b if b.dtype == torch.float32 else b.to(torch.float32)
     k = b.shape[1]
     x = torch.empty((n, k), dtype=torch.float32, device=b.device)
@@ -246,3 +256,21 @@ def packed_trisolve_cuda(arrays, meta_items, b):
 
 
 packed_trisolve_cuda.launches = 0    # kernel launches since the last reset
+
+
+def packed_trisolve_config(meta_items, k, device=None):
+    """What the kernel's launch for this plan and ``k`` right-hand sides
+    uses on a CUDA ``device``: CTAs a cluster, right-hand sides a cluster,
+    ring stages, dynamic shared memory bytes a CTA, and the device's
+    limit of it."""
+    meta = dict(meta_items)
+    lib = _cuda.library("tri_packed")
+    fn = lib.tri_packed_config
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 5)()
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        _cuda.check("tri_packed", fn(meta["P"], meta["Wv"], int(k), out))
+    return dict(cluster=out[0], rhs_per_cluster=out[1], stages=out[2],
+                smem_bytes=out[3], smem_limit=out[4])

@@ -331,6 +331,58 @@ def test_tri_kernel_matches_plain(dev, lower, k, bdtype):
     assert _rel_err(x, want) <= 1e-5
 
 
+# plans at the edges of the planner's caps: (n, entries a row, reach,
+# seed, scale) giving P = 31 (cap 32) and Wv = 50 (cap 64)
+EDGE_FACTORS = {"large_P": (40 * 256 + 77, 3, 31 * 256 - 40, 5, 0.05),
+                "large_Wv": (1700, 220, 700, 7, 0.004)}
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 9])
+@pytest.mark.parametrize("lower", [True, False], ids=["lower", "upper"])
+@pytest.mark.parametrize("case", list(EDGE_FACTORS))
+def test_tri_kernel_on_edge_plans(dev, case, lower, k):
+    """Kernel C on a plan with P near its cap (the carry window fills most
+    of the shared memory, so fewer columns a cluster) and one with a wide
+    cross ELL (a large ring stage)."""
+    d = random_lower_factor(*EDGE_FACTORS[case])
+    if not lower:
+        d = gtt.MatrixData(d.shape, d.col_idx.copy(), d.row_idx.copy(),
+                           d.values.copy()).canonical()
+    arrays, meta = tri_packed.plan_packed_trisolve(d, lower, False,
+                                                   device=dev)
+    P, Wv = dict(meta)["P"], dict(meta)["Wv"]
+    assert (P >= 31) if case == "large_P" else (Wv >= 48)
+    cfg = tri_packed.packed_trisolve_config(meta, k)
+    assert cfg["cluster"] == 8 and cfg["stages"] >= 2
+    assert 1 <= cfg["rhs_per_cluster"] <= min(k, 8)
+    assert cfg["smem_bytes"] <= cfg["smem_limit"]
+    b = torch.randn((d.shape[0], k), dtype=torch.float32, device=dev)
+    x = tri_packed.packed_trisolve_cuda(arrays, meta, b)
+    torch.cuda.synchronize()
+    want = tri_packed.packed_trisolve_reference(arrays, meta, b)
+    assert _rel_err(x, want) <= 1e-5
+
+
+def test_tri_kernel_raises_on_a_window_the_card_refuses(dev):
+    """A plan whose carry window cannot fit in shared memory beside two
+    ring stages (P = 200, beyond the planner's cap of 32) is refused by
+    CUDA, and the error reaches the caller and is not left behind for later
+    calls."""
+    d = random_lower_factor(1200, 5, 400, 9, scale=0.04)
+    arrays, meta = tri_packed.plan_packed_trisolve(d, True, False,
+                                                   device=dev)
+    meta_items = tuple(sorted(dict(dict(meta), P=200).items()))
+    cfg = tri_packed.packed_trisolve_config(meta_items, 1)
+    assert cfg["smem_bytes"] > cfg["smem_limit"]
+    b = torch.randn((1200, 1), device=dev)
+    before = tri_packed.packed_trisolve_cuda.launches
+    with pytest.raises(RuntimeError, match="tri_packed kernel launch failed"):
+        tri_packed.packed_trisolve_cuda(arrays, meta_items, b)
+    assert tri_packed.packed_trisolve_cuda.launches == before
+    torch.cuda.synchronize()
+    assert float((b * 2).sum()) == pytest.approx(2 * float(b.sum()))
+
+
 def _tf32_on(how):
     if how == "allow_tf32":
         torch.backends.cuda.matmul.allow_tf32 = True
@@ -389,6 +441,12 @@ def test_tri_wrapper_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="one device"):
         tri_packed.packed_trisolve_cuda(
             {name: a.cpu() for name, a in arrays.items()}, meta, b)
+    # the kernel copies the plan in 16-byte units
+    inv = arrays["inv"]
+    shifted = torch.empty(inv.numel() + 1, device=dev)[1:].view(inv.shape)
+    shifted.copy_(inv)
+    with pytest.raises(ValueError, match="16-byte"):
+        tri_packed.packed_trisolve_cuda(dict(arrays, inv=shifted), meta, b)
     assert registry.lookup("packed_trisolve", dev) is \
         tri_packed.packed_trisolve_cuda
 
@@ -590,6 +648,38 @@ def test_row_write_kernel_matches_copy(dev, shape, dtype):
     assert store.data_ptr() == ptr
     assert torch.cuda.memory_allocated() <= mem
     assert torch.equal(store.view(torch.uint8), want.view(torch.uint8))
+
+
+# the kernel's ring: chunks of 16 KB, 4 stages, 2 CTAs an SM; row lengths
+# in bytes around one chunk, one ring and more chunks than CTAs
+RING_BYTES = [16, 16384 - 16, 16384, 16384 + 16, 4 * 16384, 4 * 16384 + 48,
+              300 * 16384 + 32]
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES, ids=str)
+def test_row_write_kernel_ring_lengths_and_misalignment(dev, dtype):
+    """Bit for bit ``copy_`` at row lengths around the ring's chunks, with
+    the row and the store's row starting at every element offset within 16
+    bytes (aligned alike or not), the rows beside it untouched."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def random_bits(count):      # any bit pattern: copies are compared
+        return torch.randint(0, 256, (count * esize,), dtype=torch.uint8,
+                             device=dev, generator=g).view(dtype)
+    for nbytes in RING_BYTES:
+        n = max(1, nbytes // esize + (1 if esize < 16 else 0))
+        for off in range(0, max(1, 16 // esize)):
+            for src_off in sorted({0, off}):
+                store = random_bits(3 * n + off)[off:].view(3, n)
+                want = store.clone()
+                row = random_bits(n + src_off)[src_off:]
+                assert row_write.row_write_cuda(store, 1, row) is store
+                want[1].copy_(row)
+                torch.cuda.synchronize()
+                assert torch.equal(store.view(torch.uint8),
+                                   want.view(torch.uint8)), (nbytes, off,
+                                                             src_off)
 
 
 def test_row_write_wrapper_raises_instead_of_falling_back(dev):
