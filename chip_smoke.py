@@ -45,14 +45,21 @@ exits non-zero:
    of kernel D (23 on the product plan, 19 on the denominator plan), the
    stagetimer's host/transfer/device split, and both triangular solves of
    ``Ilu(ParIlut)`` on kernel C;
+   then a second generate of the same matrix on the cached plan (the
+   time-dependent-coefficients workflow: no planning, the pair streams
+   kept on the card), counted as a main path of its own, with its split
+   and factors equal to the first's;
 10. main path, ILUT: Ilu(ParIlut)-BiCGSTAB to ``ResidualNorm(1e-5)`` as in
    8, in fewer iterations than without a preconditioner;
 11. the same generate with the one-hot scatter (``_DOT_MODE = "onehot"``):
    42 launches of kernel E and factors that agree with 9's;
-12. kernels D and E (pair contraction) at the product and denominator
-   plans of that generate, against their plain version and an f64
-   raw-triple oracle, timed beside their byte bound, their plain version
-   and the gather + ``index_add_`` of the raw triples;
+12. kernels D and E (pair contraction over the plan's pad-free pair
+   stream) at the product and denominator plans of that generate, against
+   their plain version on the plan's slabs and an f64 raw-triple oracle,
+   kernel D twice bit for bit, timed beside their byte bound, their plain
+   version and the gather + ``index_add_`` of the raw triples, with each
+   plan's live-vreg fill, stream bytes, repack ms and the card bytes the
+   stream frees against the slabs;
 13. small solves on the card agree with the port's CPU run: Jacobi-CG and
    Ic-CG in f64, Ilu-BiCGSTAB in f32 and f64, packed ParILUT and ParICT
    factors in f64, and Ilu(ParIlut)-BiCGSTAB in f32;
@@ -970,6 +977,37 @@ def ilut_generate(A):
     return F, M, plan, launches
 
 
+def ilut_regenerate(A, F_first):
+    """A second ``ParIlut(iterations=5)`` generate of the same matrix: the
+    plan cache serves the plan and the pair streams shipped by the first
+    (no planning, no repack), so the time is the values' transfer and the
+    device loop.  Counted as a main path of its own; kernel D is
+    deterministic, so the factors equal the first generate's."""
+    reset_counters()
+    t0 = time.perf_counter()
+    with stagetimer.collect() as st:
+        F = ParIlut(iterations=ILUT_ITERATIONS).generate(A)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    transfer = st.stages.get("transfer", 0.0)
+    device = st.stages.get("device", 0.0)
+    same = all(torch.equal(getattr(F, f).values, getattr(F_first, f).values)
+               and torch.equal(getattr(F, f).col_idx,
+                               getattr(F_first, f).col_idx)
+               for f in ("l_factor", "u_factor"))
+    say("ilut_regenerate", seconds=seconds, host_s=seconds - transfer - device,
+        transfer_s=transfer, device_s=device, launches=launches,
+        route=F.route, factors_equal_first=same)
+    if F.route != "packed" or launches["pair_contract_cumsum"] != 42:
+        raise AssertionError(f"ParILUT regenerate: route {F.route}, kernel D "
+                             f"launches {launches['pair_contract_cumsum']}")
+    if not same:
+        raise AssertionError("ParILUT regenerate: factors differ from the "
+                             "first generate's (kernel D is deterministic)")
+    return launches
+
+
 def _pattern_keys(op):
     d = op.to_matrix_data()
     return d.row_idx.astype(np.int64) * d.shape[1] + d.col_idx, d.values
@@ -1025,10 +1063,23 @@ def ilut_generate_onehot(A, F_ref, plan):
 # -- kernels D and E -------------------------------------------------------------
 PLAN_STREAMS = ("pls", "pus", "pos", "pes", "pesp", "lq", "uq", "nv", "lbase",
                 "ubase")
+# the slab arrays the slab kernel D (the TPU layout) kept on the card for
+# a plan, against which the pair stream's bytes are counted
+SLAB_KEPT = ("pls", "pus", "pes", "pesp", "lq", "uq", "nv", "lbase", "ubase")
+
+
+def tensor_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def pairs_in(stream):
+    """The real pairs of a pair stream (its padding carries slot 1024)."""
+    return int((stream["co"] < 1024).sum())
 
 
 def contraction_case(cplan, seed):
-    """f32 operands from a numpy seed, every stream of the kernel plan and
+    """f32 operands from a numpy seed, every slab of the kernel plan and
+    its tail, its pad-free pair stream (repacked on the card, timed) and
     the raw triple on the card."""
     k = cplan["kernel"]
     meta = dict(k["meta"])
@@ -1040,8 +1091,11 @@ def contraction_case(cplan, seed):
     arrs = {name: torch.from_numpy(k[name]).to(DEV) for name in PLAN_STREAMS}
     arrs["tail"] = tuple(torch.from_numpy(t).to(DEV).long()
                          for t in k["tail"])
+    repack_ms = time_ms(lambda: pair_contract.pair_stream(arrs, k["meta"]),
+                        3)
+    arrs["stream"] = pair_contract.pair_stream(arrs, k["meta"])
     raw = tuple(torch.from_numpy(t).to(DEV).long() for t in cplan["raw"])
-    return a, b, arrs, k["meta"], raw
+    return a, b, arrs, k["meta"], raw, repack_ms
 
 
 def pair_needed_bytes_ops(cplan, itemsize=4):
@@ -1064,8 +1118,9 @@ def pair_needed_bytes_ops(cplan, itemsize=4):
 
 def check_pair(name, mode, cplan, seed):
     """One kernel on one plan: error against the plain version and the
-    f64 oracle, then times.  Returns the phase's fields."""
-    a, b, arrs, meta, raw = contraction_case(cplan, seed)
+    f64 oracle, kernel D twice bit for bit, then times.  Returns the
+    phase's fields."""
+    a, b, arrs, meta, raw, repack_ms = contraction_case(cplan, seed)
     n_out = dict(meta)["n_out"]
     prev = pair_contract._DOT_MODE
     pair_contract._DOT_MODE = mode
@@ -1080,6 +1135,10 @@ def check_pair(name, mode, cplan, seed):
                                                        n_out)
         assert y.shape == plain.shape == (n_out,) and y.dtype == a.dtype
         assert bool(torch.isfinite(y).all())
+        if mode == "cumsum_batched" and not torch.equal(y, fn(a, b, arrs,
+                                                              meta)):
+            raise AssertionError(f"{name}: two runs differ (kernel D is "
+                                 f"deterministic)")
         err_plain, scale = rel_err(y, plain)
         err_oracle, _ = rel_err(y, oracle)
         tol = PAIR_TOL[name]
@@ -1096,12 +1155,19 @@ def check_pair(name, mode, cplan, seed):
         a, b, *raw, n_out), 10, queue_ahead=True)
     nbytes, nops = pair_needed_bytes_ops(cplan)
     bms, by = bound(nbytes, nops)
-    # what the kernel streams of int16 indices, padding slots included
-    index_stream_bytes = (int(cplan["kernel"]["nv"].sum()) * 1024 * 2
-                          * (4 if mode == "cumsum_batched" else 3))
+    st = arrs["stream"]
+    live = int(cplan["kernel"]["nv"].sum())
+    slab_bytes = tensor_bytes(arrs[key] for key in SLAB_KEPT)
+    stream_bytes = tensor_bytes(st.values())
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bms,
-                bound_by=by, bytes=nbytes,
-                index_stream_bytes=index_stream_bytes, pairs=nops // 2,
+                bound_by=by, bytes=nbytes, pairs=nops // 2,
+                stream_pairs=pairs_in(st), stream_slots=st["cl"].numel(),
+                live_vregs=live, live_vreg_fill=pairs_in(st) / (live * 1024),
+                index_stream_bytes=tensor_bytes(st[key] for key in
+                                                ("cl", "cu", "co")),
+                stream_bytes=stream_bytes, slab_bytes=slab_bytes,
+                device_bytes_freed=slab_bytes - stream_bytes,
+                repack_ms=repack_ms,
                 effective_GBps=nbytes / (ms * 1e-3) / 1e9,
                 max_abs_err=err_plain * scale, max_rel_err=err_plain,
                 max_rel_err_vs_f64_oracle=err_oracle)
@@ -2008,6 +2074,7 @@ def main() -> int:
     assert M.l_solver.algorithm == M.u_solver.algorithm == "exact_packed"
 
     Ft, Mt, plan, ilut_launches = ilut_generate(Ai)
+    regenerate_launches = ilut_regenerate(Ai, Ft)
     onehot_launches = ilut_generate_onehot(Ai, Ft, plan)
 
     kernels = [phase_kernel_a(Ab), phase_kernel_b(Ap, Ai),
@@ -2018,7 +2085,7 @@ def main() -> int:
     ilu_launches, ilu_iters, bare_iters = main_ilu(Ai, M)
     runs = [main_path("banded", Ab, "banded", "dia_spmv"),
             main_path("packed", Ap, "packed", "pell_spmv"),
-            ilu_launches, ilut_launches,
+            ilu_launches, ilut_launches, regenerate_launches,
             main_ilut(Ai, Mt, ilu_iters, bare_iters), onehot_launches,
             main_gmres(Ab), *(main_gmres(Ab, s) for s in CB_STORAGES)]
     gmres_tf32()

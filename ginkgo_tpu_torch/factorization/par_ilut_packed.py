@@ -335,24 +335,31 @@ def _put(x, device):
 def _ship_contract(cplan, device):
     """(arrs dict, static meta) of one pair-contraction plan on
     ``device``.  The shipped tensors are memoized on the plan dict (for
-    one device and scatter mode at a time): a cached plan (same-pattern
-    regenerate) keeps its streams device-resident, so the second generate
-    transfers only the matrix values.  A kernel plan ships the streams of
-    the active ``_DOT_MODE`` (``pes``/``pesp`` for kernel D, ``pos`` for
-    kernel E)."""
+    one device at a time, and on the CPU one scatter mode): a cached plan
+    (same-pattern regenerate) keeps its streams device-resident, so the
+    second generate transfers only the matrix values.  On a CUDA device a
+    kernel plan's slabs (``pls``, ``pus``, ``pos`` and the tables) are
+    repacked once into the pad-free pair stream that both kernels read
+    (``pair_contract.pair_stream``) and dropped, whatever the mode; on the
+    CPU the plain version reads the slabs of the active ``_DOT_MODE``
+    (``pes``/``pesp`` for kernel D, ``pos`` for kernel E)."""
     mode = pair_contract._DOT_MODE
-    key = (str(device), mode)
+    on_card = torch.device(device).type == "cuda"
+    key = (str(device), None if on_card else mode)
     shipped = cplan.get("_shipped")
     if shipped is not None and shipped[0] == key:
         return shipped[1]
     cplan.pop("_shipped", None)        # free the other device's copy first
     k = cplan["kernel"]
     if k is not None:
-        streams = ("pes", "pesp") if mode == "cumsum_batched" else ("pos",)
+        streams = (("pos",) if on_card or mode == "onehot"
+                   else ("pes", "pesp"))
         arrs = {n: _put(k[n], device) for n in
                 ("pls", "pus", *streams, "lq", "uq", "nv", "lbase",
                  "ubase")}
         arrs["tail"] = tuple(_put(t, device).long() for t in k["tail"])
+        if on_card:
+            arrs = {"stream": pair_contract.pair_stream(arrs, k["meta"])}
         out = arrs, ("kernel", k["meta"])
     else:
         rl, ru, ro = cplan["raw"]

@@ -39,11 +39,11 @@ SIGNATURES = {
     "tri_packed": ("tri_packed_launch",
                    [_I, _P, _P, _P, _P, _I, _I, _I, _L, _I, _P, _L, _P, _L,
                     _I, _P]),
-    # mode, vcode, a, na, b, nb, pls, pus, pes|pos, pesp, lq, uq, nv, lbase,
-    # ubase, T, NV, n_out, y, stream
+    # mode, vcode, a, na, b, nb, cl, cu, co, vstart, va, vb, tstart, T,
+    # n_out, tl, tu, tseg, tpo, nseg, y, stream
     "pair_contract": ("pair_contract_launch",
                       [_I, _I, _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _I, _I, _L, _P, _P]),
+                       _I, _L, _P, _P, _P, _P, _I, _P, _P]),
     # dst (row i of the store), src, elements, element size, stream
     "row_write": ("row_write_launch", [_P, _P, _L, _I, _P]),
     # vcode, xcode, vals, c16, xbase_row, w, n, m, x, ldx, y, ldy, k, stream

@@ -27,7 +27,10 @@ Tiers:
 * ``pair_contract_planned`` ``cuda``: kernel D (``"cumsum_batched"``, the
   default; replaces ``_pair_kernel_batched``) or kernel E (``"onehot"``;
   replaces ``_pair_kernel``), both in ``csrc/pair_contract.cu``, then the
-  COO tail with ``index_add_`` (the JAX package leaves the tail to XLA).
+  COO tail in the same launch (the JAX package leaves the tail to XLA).
+  The kernels read the plan's pad-free pair stream (``pair_stream``,
+  repacked once on the card: each live vreg's real pairs, 6 B of int16
+  indices a pair), not the padded slabs.
 """
 
 from __future__ import annotations
@@ -439,45 +442,120 @@ def pair_contract_planned_reference(a, b, arrs, meta_items):
 
 
 # ---------------------------------------------------------------------------
+# the pad-free pair stream of the cuda tier
+# ---------------------------------------------------------------------------
+
+STREAM = ("cl", "cu", "co", "vstart", "va", "vb", "tstart")
+TAIL = ("tl", "tu", "tseg", "tpo")
+_CHUNK = 8                  # pairs a lane of the kernels loads at once
+
+
+def pair_stream(arrs, meta_items):
+    """The pad-free pair stream of a kernel plan, built on the device of
+    its slab arrays (``pls``, ``pus``, ``pos`` (T, NV, 8, 128) int16 and
+    the ``lq``/``uq``/``nv``/``lbase``/``ubase`` tables):
+
+    - the live vregs (``v < nv[t]``) in (tile, vreg) order; live vreg i's
+      pairs at ``[vstart[i], vstart[i+1])`` (``vstart`` int64), its range
+      padded to a multiple of 8 (the kernels' 16-byte loads) with pairs of
+      slot 1024, which add nothing;
+    - its pairs: the slots with ``pos < 1024``, in slot order (so
+      po-ascending, as kernel D's segmented sum needs);
+    - ``cl``/``cu``/``co``: each pair's ``pls``, ``pus`` and ``pos``;
+    - ``va``/``vb`` int32: the vreg's window rows ``lbase[t] + lq[t, v]``
+      and ``ubase[t] + uq[t, v]``;
+    - ``tstart`` int32 (T + 1): tile t's live vregs are ``[tstart[t],
+      tstart[t+1])``;
+    - the plan's COO tail ``arrs["tail"]`` sorted by po (stable): ``tl``,
+      ``tu`` int32, and for each of its output slots ``tpo`` its pairs
+      ``[tseg[i], tseg[i+1])``."""
+    meta = dict(meta_items)
+    T, NV = meta["T"], meta["NV"]
+    dev = arrs["pls"].device
+    nv = arrs["nv"].long()
+    live = torch.arange(NV, device=dev)[None, :] < nv[:, None]  # (T, NV)
+    pos = arrs["pos"].reshape(T, NV, _OW)
+    keep = (pos >= 0) & (pos < _OW) & live[..., None]
+    count = keep.sum(-1)[live]
+    flat = keep.reshape(-1).nonzero().squeeze(1)       # (tile, vreg, slot)
+    del keep
+    nvr = count.numel()
+    vreg = torch.repeat_interleave(torch.arange(nvr, device=dev), count,
+                                   output_size=flat.numel())
+    vstart = torch.zeros(nvr + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(-(-count // _CHUNK) * _CHUNK, 0, out=vstart[1:])
+    total = int(vstart[-1])
+    if total >= 1 << 31:
+        raise ValueError(f"pair_stream: {total} pairs do not fit the "
+                         f"kernels' int32 tables")
+    first = torch.cumsum(count, 0) - count
+    dest = vstart[vreg] + torch.arange(flat.numel(), device=dev) - first[vreg]
+    del vreg, first
+    out = {}
+    for name, src, fill in (("cl", arrs["pls"], 0), ("cu", arrs["pus"], 0),
+                            ("co", pos, _OW)):
+        out[name] = torch.full((total,), fill, dtype=torch.int16,
+                               device=dev)
+        out[name][dest] = src.reshape(-1)[flat]
+    tile, rank = live.nonzero(as_tuple=True)
+    tstart = torch.zeros(T + 1, dtype=torch.int32, device=dev)
+    torch.cumsum(nv, 0, out=tstart[1:])
+    out.update(vstart=vstart, tstart=tstart,
+               va=(arrs["lbase"][tile] + arrs["lq"][tile, rank]).int(),
+               vb=(arrs["ubase"][tile] + arrs["uq"][tile, rank]).int())
+    tl, tu, to = (t.to(dev).long() for t in arrs["tail"])
+    order = torch.sort(to, stable=True).indices
+    tpo, count = torch.unique_consecutive(to[order], return_counts=True)
+    tseg = torch.zeros(tpo.numel() + 1, dtype=torch.int32, device=dev)
+    torch.cumsum(count, 0, out=tseg[1:])
+    out.update(tl=tl[order].int(), tu=tu[order].int(), tseg=tseg,
+               tpo=tpo.int())
+    return out
+
+
+# ---------------------------------------------------------------------------
 # cuda tier: kernels D and E of csrc/pair_contract.cu
 # ---------------------------------------------------------------------------
 
-_MODES = {"cumsum_batched": 0, "onehot": 1}
-
-
 def _launch(kernel, mode, a, b, arrs, meta_items):
     meta = dict(meta_items)
-    T, NV, n_out = meta["T"], meta["NV"], meta["n_out"]
+    T, n_out = meta["T"], meta["n_out"]
     if a.dtype.is_complex or b.dtype.is_complex:
         raise NotImplementedError(
-            "pair_contract kernels take real values; complex values on CUDA "
-            "are still to be ported (ROADMAP.md queue 2 item 4)")
+            "pair_contract kernels take f32 or f64 values; the TPU kernels "
+            "take f32 only, so no kernel computes the complex contraction "
+            "(ROADMAP.md queue 3, the divergence \"D and E in f64\")")
     if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"pair_contract kernels take f32 or f64 operands of "
                         f"one type, got {a.dtype} and {b.dtype}")
-    third = "pes" if mode == 0 else "pos"
-    streams = [arrs["pls"], arrs["pus"], arrs[third]]
-    if mode == 0:
-        streams.append(arrs["pesp"])
-    tables = [arrs["lq"], arrs["uq"]]
-    per_tile = [arrs["nv"], arrs["lbase"], arrs["ubase"]]
-    tail = tuple(arrs["tail"])
+    if "stream" not in arrs:
+        raise ValueError("pair_contract: the kernels read the plan's pad-free "
+                         "pair stream; build it with pair_stream(arrs, meta)")
+    st = arrs["stream"]
+    nvr = st["va"].shape[0] if st["va"].ndim == 1 else -1
+    nseg = st["tpo"].shape[0] if st["tpo"].ndim == 1 else -1
     if (a.ndim != 1 or b.ndim != 1
             or a.shape[0] > meta["pad_rows_a"] * LANES
             or b.shape[0] > meta["pad_rows_b"] * LANES
-            or n_out > T * _OW or len(tail) != 3
-            or any(tuple(s.shape) != (T, NV, 8, LANES)
-                   or s.dtype != torch.int16 for s in streams)
-            or any(tuple(q.shape) != (T, NV) or q.dtype != torch.int32
-                   for q in tables)
-            or any(tuple(q.shape) != (T,) or q.dtype != torch.int32
-                   for q in per_tile)):
+            or n_out > T * _OW
+            or any(st[k].ndim != 1 or st[k].dtype != torch.int16
+                   or st[k].shape != st["cl"].shape
+                   for k in ("cl", "cu", "co"))
+            or st["cl"].shape[0] % _CHUNK
+            or st["vstart"].dtype != torch.int64
+            or tuple(st["vstart"].shape) != (nvr + 1,)
+            or any(st[k].dtype != torch.int32 for k in ("va", "vb",
+                                                        "tstart"))
+            or tuple(st["vb"].shape) != (nvr,)
+            or tuple(st["tstart"].shape) != (T + 1,)
+            or any(st[k].dtype != torch.int32 for k in TAIL)
+            or st["tl"].ndim != 1 or st["tu"].shape != st["tl"].shape
+            or tuple(st["tseg"].shape) != (nseg + 1,)):
         raise ValueError(
-            f"pair_contract: a {tuple(a.shape)}, b {tuple(b.shape)}, streams "
-            f"{[(tuple(s.shape), s.dtype) for s in streams + tables]}, per-"
-            f"tile {[(tuple(q.shape), q.dtype) for q in per_tile]} do not "
-            f"fit meta {meta}")
-    tensors = [a, b, *streams, *tables, *per_tile, *tail]
+            f"pair_contract: a {tuple(a.shape)}, b {tuple(b.shape)}, stream "
+            f"{ {k: (tuple(v.shape), v.dtype) for k, v in st.items()} } do "
+            f"not fit meta {meta}")
+    tensors = [a, b, *(st[k] for k in STREAM + TAIL)]
     if any(t.device != a.device for t in tensors):
         raise ValueError("pair_contract: plan and operands must share one "
                          "device")
@@ -490,30 +568,28 @@ def _launch(kernel, mode, a, b, arrs, meta_items):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         code = lib.pair_contract_launch(
             mode, _cuda.type_code(a.dtype), a.data_ptr(), a.shape[0],
-            b.data_ptr(), b.shape[0], streams[0].data_ptr(),
-            streams[1].data_ptr(), streams[2].data_ptr(),
-            streams[3].data_ptr() if mode == 0 else None,
-            tables[0].data_ptr(), tables[1].data_ptr(),
-            per_tile[0].data_ptr(), per_tile[1].data_ptr(),
-            per_tile[2].data_ptr(), T, NV, n_out, y.data_ptr(), stream)
+            b.data_ptr(), b.shape[0],
+            *(st[k].data_ptr() for k in STREAM), T, n_out,
+            *(st[k].data_ptr() for k in TAIL), nseg, y.data_ptr(), stream)
         _cuda.check("pair_contract", code)
         kernel.launches += 1
-    return _add_tail(y, a, b, tail)
+    return y
 
 
 def pair_contract_cumsum_cuda(a, b, arrs, meta_items):
-    """Kernel D, the cumsum-difference scatter (``_DOT_MODE =
-    "cumsum_batched"``), then the COO tail.  A tensor on the CPU takes
-    the plain version; on a CUDA device this launches the kernel or
-    raises — it never falls back."""
+    """Kernel D, the deterministic segmented sum (``_DOT_MODE =
+    "cumsum_batched"``), COO tail included.  A tensor on the CPU takes the
+    plain version on the plan's slabs; on a CUDA device this launches the
+    kernel on ``arrs["stream"]`` or raises — it never falls back."""
     if a.device.type != "cuda":
         return _planned_plain(a, b, arrs, dict(meta_items), "cumsum_batched")
     return _launch(pair_contract_cumsum_cuda, 0, a, b, arrs, meta_items)
 
 
 def pair_contract_onehot_cuda(a, b, arrs, meta_items):
-    """Kernel E, the direct slot scatter (``_DOT_MODE = "onehot"``), then
-    the COO tail; CPU tensors take the plain version, as kernel D's."""
+    """Kernel E, the slot scatter by shared atomics (``_DOT_MODE =
+    "onehot"``), COO tail included; CPU tensors take the plain version, as
+    kernel D's."""
     if a.device.type != "cuda":
         return _planned_plain(a, b, arrs, dict(meta_items), "onehot")
     return _launch(pair_contract_onehot_cuda, 1, a, b, arrs, meta_items)

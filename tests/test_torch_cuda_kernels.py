@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import ginkgo_tpu_torch as gtt
+import pair_walk
 from ginkgo_tpu_torch.benchmark import build_matrix_data
 from ginkgo_tpu_torch.factorization import ParIct, ParIlu, ParIlut
 from ginkgo_tpu_torch.ops import (pair_contract, registry, row_write,
@@ -520,13 +521,29 @@ def _empty_tile_plan():
     return plan, (pl, pu, po, 3000, 3000, 3000)
 
 
+def _near_cap_plan():
+    """One tile of 90 live vregs (9 x 10 window blocks of about 670
+    pairs), next to the planner's cap of 96."""
+    rng = np.random.default_rng(10)
+    po = np.sort(rng.integers(0, 1024, 60000))
+    pl = rng.integers(0, 9 * 1024, len(po))
+    pu = rng.integers(0, 10 * 1024, len(po))
+    plan = pair_contract.plan_pair_contract(pl, pu, po, 1024, 9 * 1024,
+                                            10 * 1024)
+    assert 88 <= plan["nv"][0] <= pair_contract._NV_CAP
+    return plan, (pl, pu, po, 1024, 9 * 1024, 10 * 1024)
+
+
 def _pair_args(plan, lists, dtype, dev):
+    """Operands, the plan's slabs (for the plain version) and its pad-free
+    stream (for the kernels) on the card."""
     g = np.random.default_rng(9)
     a = torch.from_numpy(g.standard_normal(lists[4])).to(dev, dtype)
     b = torch.from_numpy(g.standard_normal(lists[5])).to(dev, dtype)
     arrs = {k: torch.from_numpy(plan[k]).to(dev) for k in PAIR_STREAMS}
     arrs["tail"] = tuple(torch.from_numpy(t).to(dev).long()
                          for t in plan["tail"])
+    arrs["stream"] = pair_contract.pair_stream(arrs, plan["meta"])
     return a, b, arrs
 
 
@@ -537,11 +554,17 @@ def dot_mode():
     pair_contract._DOT_MODE = prev
 
 
+def _pair_oracle(a, b, lists, dev):
+    return pair_contract.pair_contract_reference(
+        a.double(), b.double(), *(torch.from_numpy(np.asarray(x)).to(dev)
+                                  for x in lists[:3]), lists[3])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
 @pytest.mark.parametrize("mode", list(PAIR_MODES))
 @pytest.mark.parametrize("make", [_spill_plan, _shifted_plan,
-                                  _empty_tile_plan],
-                         ids=["spill", "shifted", "empty_tile"])
+                                  _empty_tile_plan, _near_cap_plan],
+                         ids=["spill", "shifted", "empty_tile", "near_cap"])
 def test_pair_kernels_match_plain(dev, make, mode, dtype, dot_mode):
     plan, lists = make()
     a, b, arrs = _pair_args(plan, lists, dtype, dev)
@@ -554,17 +577,55 @@ def test_pair_kernels_match_plain(dev, make, mode, dtype, dot_mode):
     assert y.dtype == dtype and y.device.type == "cuda"
     want = pair_contract.pair_contract_planned_reference(a, b, arrs,
                                                          plan["meta"])
-    oracle = pair_contract.pair_contract_reference(
-        a.double(), b.double(), *(torch.from_numpy(np.asarray(x)).to(dev)
-                                  for x in lists[:3]), lists[3])
+    oracle = _pair_oracle(a, b, lists, dev)
     # f32: sums in other orders (kernel E's atomics in a changing order,
-    # kernel D's cumsum difference losing digits to cancellation)
+    # the plain kernel D's cumsum difference losing digits to cancellation)
     tol = {torch.float32: 2e-5 if mode == "onehot" else 1e-5,
            torch.float64: 1e-12}[dtype]
     assert _rel_err(y, want) <= tol
     assert _rel_err(y, oracle) <= tol
     if make is _empty_tile_plan:
         assert bool((y[1024:2048] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("make", [_spill_plan, _shifted_plan,
+                                  _empty_tile_plan, _near_cap_plan],
+                         ids=["spill", "shifted", "empty_tile", "near_cap"])
+def test_pair_kernel_d_is_its_emulation_bit_for_bit(dev, make, dtype):
+    """Kernel D run twice gives the same bits, and they are the emulated
+    walk's and tail's (tests/pair_walk.py); kernel E agrees with the
+    emulation to its tolerance."""
+    plan, lists = make()
+    a, b, arrs = _pair_args(plan, lists, dtype, dev)
+    y1 = pair_contract.pair_contract_cumsum_cuda(a, b, arrs, plan["meta"])
+    y2 = pair_contract.pair_contract_cumsum_cuda(a, b, arrs, plan["meta"])
+    assert torch.equal(y1, y2)
+    st = {k: v.cpu() for k, v in arrs["stream"].items()}
+    emu = pair_walk.walk(a.cpu(), b.cpu(), st, plan["meta"], "cumsum_batched")
+    emu = pair_walk.tail(a.cpu(), b.cpu(), st, emu)
+    assert torch.equal(y1.cpu(), emu)
+    ye = pair_contract.pair_contract_onehot_cuda(a, b, arrs, plan["meta"])
+    tol = {torch.float32: 2e-5, torch.float64: 1e-12}[dtype]
+    assert _rel_err(ye.cpu(), emu) <= tol
+
+
+def test_pair_kernel_refused_launch_raises(dev):
+    """A stream not 16-byte aligned (the kernels' index loads) is refused
+    by the launch and the wrappers raise, counting no launch."""
+    plan, lists = _spill_plan()
+    a, b, arrs = _pair_args(plan, lists, torch.float32, dev)
+    st = arrs["stream"]
+    for key in ("cl", "cu", "co"):
+        shifted = torch.empty(st[key].numel() + 8, dtype=torch.int16,
+                              device=dev)[1:1 + st[key].numel()]
+        shifted.copy_(st[key])
+        bad = dict(arrs, stream=dict(st, **{key: shifted}))
+        for fn in PAIR_MODES.values():
+            before = fn.launches
+            with pytest.raises(RuntimeError, match="launch failed"):
+                fn(a, b, bad, plan["meta"])
+            assert fn.launches == before
 
 
 def test_pair_wrappers_raise_instead_of_falling_back(dev):
@@ -576,18 +637,37 @@ def test_pair_wrappers_raise_instead_of_falling_back(dev):
             fn(a, b.double(), arrs, meta)
         with pytest.raises(TypeError):
             fn(a.half(), b.half(), arrs, meta)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="queue 3"):
             fn(a.to(torch.complex64), b.to(torch.complex64), arrs, meta)
+        with pytest.raises(ValueError, match="pair stream"):
+            fn(a, b, {k: v for k, v in arrs.items() if k != "stream"}, meta)
         with pytest.raises(ValueError, match="one device"):
             fn(a, b, {k: (tuple(t.cpu() for t in v) if k == "tail"
-                          else v.cpu()) for k, v in arrs.items()}, meta)
+                          else {n: t.cpu() for n, t in v.items()}
+                          if k == "stream" else v.cpu())
+                      for k, v in arrs.items()}, meta)
         with pytest.raises(ValueError):
             fn(a[:-1].repeat(2), b, arrs, meta)      # longer than the plan
-        bad = dict(arrs, pls=arrs["pls"].int())
+        bad = dict(arrs, stream=dict(arrs["stream"],
+                                     cl=arrs["stream"]["cl"].int()))
         with pytest.raises(ValueError):
             fn(a, b, bad, meta)
     assert registry.lookup("pair_contract_planned", dev) is \
         pair_contract.pair_contract_planned_cuda
+
+
+def test_shipped_pair_stream_is_kept_across_modes(dev, dot_mode):
+    """On the card both kernels read one stream, so switching
+    ``_DOT_MODE`` (as the one-hot generate does) reuses the shipped stream
+    instead of shipping the slabs and repacking again."""
+    from ginkgo_tpu_torch.factorization import par_ilut_packed
+    plan, _ = _spill_plan()
+    cplan = {"kernel": plan}
+    pair_contract._DOT_MODE = "cumsum_batched"
+    first = par_ilut_packed._ship_contract(cplan, dev)
+    assert set(first[0]) == {"stream"}
+    pair_contract._DOT_MODE = "onehot"
+    assert par_ilut_packed._ship_contract(cplan, dev) is first
 
 
 @pytest.mark.parametrize("case", ["ilut", "ict"])
