@@ -22,11 +22,11 @@ def build_matrix_data(case: dict) -> MatrixData:
     if "filename" in case:
         raise NotImplementedError(
             "MatrixMarket test cases need base/mtx_io.py, which a later "
-            "slice of the port brings (ROADMAP.md, queue 1 item 1: mtx_io)")
+            "slice of the port brings (ROADMAP.md, queue 1 item 6: mtx_io)")
     if case.get("rcm"):
         raise NotImplementedError(
             "'rcm' test cases need the reorderings, which a later slice of "
-            "the port brings (ROADMAP.md, queue 1 item 9: reorder)")
+            "the port brings (ROADMAP.md, queue 1 item 8: reorder)")
     if "fem" in case:
         n = int(case["fem"])
         spread = int(case.get("spread", 600))

@@ -8,8 +8,10 @@ Analog of ``core/factorization/par_ilut.cpp:262-350`` and
   device over a fixed slot universe, every product a pair contraction
   (kernel D on CUDA).  ``auto`` takes it on a CUDA device at n >= 16384,
   after the DIA path (``par_ilut_dia.py``) has declined.
-* ``dia``: the diagonal-slab loop, whose device part is still to be
-  ported (it raises where its plan accepts).
+* ``dia`` (``par_ilut_dia.py``): the whole loop on the factor's device
+  over diagonal slabs of a fixed offset universe; ``auto`` tries it first
+  on a CUDA device at n >= 16384, and it declines matrices that are not
+  diagonal-structured.
 * ``general``, the host path below.  Each outer iteration:
 
   1+2. product + add_candidates + seed, FUSED: one native pass
@@ -309,7 +311,7 @@ class ParIlut:
         if try_dia:
             from .par_ilut_dia import generate_dia
             out = generate_dia(d, self.iterations, self.fill_in_limit,
-                               self.sweeps)
+                               self.sweeps, device=device)
             if out is not None:
                 lr, lc, lv, ur, uc, uv = out
                 return _routed(_build_factors(
@@ -508,7 +510,8 @@ class ParIct:
         # device-resident DIA path (see par_ilut_dia.generate_dia_ict)
         if try_dia:
             from .par_ilut_dia import generate_dia_ict
-            out = generate_dia_ict(d, self.iterations, self.fill_in_limit)
+            out = generate_dia_ict(d, self.iterations, self.fill_in_limit,
+                                   device=device)
             if out is not None:
                 return _routed(_sym_factors(*out), "dia")
             _declined("ParIct", self.algorithm, device, "dia")

@@ -46,9 +46,6 @@ SIGNATURES = {
                        _I, _L, _P, _P, _P, _P, _I, _P, _P]),
     # dst (row i of the store), src, elements, element size, stream
     "row_write": ("row_write_launch", [_P, _P, _L, _I, _P]),
-    # vcode, xcode, vals, c16, xbase_row, w, n, m, x, ldx, y, ldy, k, stream
-    "well_spmv": ("well_spmv_launch",
-                  [_I, _I, _P, _P, _P, _I, _L, _L, _P, _L, _P, _L, _I, _P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

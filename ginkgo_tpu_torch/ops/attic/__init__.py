@@ -6,9 +6,11 @@ superseded by the packed-slot windowed-ELL kernel (``ops/spmv_packed.py``,
 the ``packed`` CSR strategy):
 
 - ``spmv_windowed``: windowed ELL with int16 window-relative columns
-  (kernel ``csrc/well_spmv.cu``);
-- ``spmv_chunked``: chunk ELL, one x chunk per 8-slot vreg (kernel H,
-  ``csrc/sell_spmv.cu`` over the slab's compact stream).
+  (kernel G);
+- ``spmv_chunked``: chunk ELL, one x chunk per 8-slot vreg (kernel H).
+
+Both kernels are ``csrc/sell_spmv.cu`` over their slab's compact stream
+(``ops/spmv_sell.py``).
 
 Each module holds its host planner (verbatim), a plain torch version, the
 wrapper of its CUDA kernel and an ``apply`` that adds the COO tail.  These

@@ -199,14 +199,8 @@ def cell_spmv_cuda(sell, sell_meta, b):
     launches the kernel or raises — it never falls back."""
     if b.device.type != "cuda":
         return sell_spmv_reference(sell, sell_meta, b)
-    if sell["sv"].dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"cell_spmv kernel takes f32 values and vectors, "
-                        f"got ({sell['sv'].dtype}, {b.dtype})")
-    y = spmv_sell.prepare(sell, sell_meta, b, "cell_spmv")
-    for c0 in range(0, b.shape[1], spmv_sell.MAX_RHS):
-        spmv_sell.launch(sell, sell_meta, b, y, c0)
-        cell_spmv_cuda.launches += 1
-    return y
+    return spmv_sell.launch_f32(sell, sell_meta, b, "cell_spmv",
+                                cell_spmv_cuda)
 
 
 cell_spmv_cuda.launches = 0    # kernel launches since the last reset
@@ -214,9 +208,9 @@ cell_spmv_cuda.launches = 0    # kernel launches since the last reset
 
 def upload(layout, tail, device):
     """The planned ``layout`` and COO ``tail`` as tensors on ``device``
-    (``spmv_windowed.upload``), plus the slab's compact stream ``sell``
-    and its ``sell_meta``, built there."""
-    t = spmv_windowed.upload(layout, tail, device)
+    (``spmv_windowed.upload_layout``), plus the slab's compact stream
+    ``sell`` and its ``sell_meta``, built there."""
+    t = spmv_windowed.upload_layout(layout, tail, device)
     t["sell"], t["sell_meta"] = sell_from_chunked(
         *(t[key] for key in ARRAYS), t["meta"])
     return t

@@ -10,10 +10,13 @@ window-relative int16 columns ``c16``.  The entry's column is
 
 Entries that break the static bounds (slot >= w, window overflow, vreg
 chunk spread > 8, slot spread > H) spill to a COO tail.  ``q0`` and ``H``
-serve the TPU kernel's sublane select only; the plain version and the CUDA
-kernel ``csrc/well_spmv.cu`` (which replaces
-``ginkgo_tpu/ops/attic/spmv_windowed.py::_well_kernel``) compute the
-function the planned arrays define and read neither.
+serve the TPU kernel's sublane select only; nothing here reads them.
+``well_spmv_reference`` is the slab's plain version.  Kernel G, which
+replaces ``ginkgo_tpu/ops/attic/spmv_windowed.py::_well_kernel``, is
+``csrc/sell_spmv.cu`` (kernel B's source) over the slab's compact stream
+(``ops/spmv_sell.py``: the slab's zero lanes dropped, each row in the
+slab's (j, s) order), which ``upload`` builds; ``well_spmv`` in the
+registry takes that stream.
 
 Not imported by the package: ``from ginkgo_tpu_torch.ops.attic import
 spmv_windowed`` registers ``well_spmv``.
@@ -25,9 +28,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import _cuda
+from .. import spmv_sell
 from ..registry import lookup, register
 from ..spmv import coo_spmv
+from ..spmv_sell import sell_from_windowed, sell_spmv_reference
 
 LANES = 128
 _ROWS_PER_BLOCK = 128
@@ -167,9 +171,9 @@ def _pad_x(b_col, meta):
     return F.pad(b_col, (0, rows * LANES - m))
 
 
-@register("well_spmv", "reference")
 def well_spmv_reference(vals, c16, q0, xbase_row, meta_items, b):
-    """Plain version: same arrays, plain gather from zero-padded x."""
+    """The function the windowed-ELL slab defines, by a plain gather from
+    zero-padded x: the oracle that the compact stream is held against."""
     meta = dict(meta_items)
     Gs, n, w8 = meta["Gs"], meta["n"], meta["w8"]
     col_abs = (xbase_row[:, None, None, None].long() * LANES + c16.long())
@@ -183,63 +187,27 @@ def well_spmv_reference(vals, c16, q0, xbase_row, meta_items, b):
     return torch.stack(outs, dim=1)
 
 
-MAX_RHS = 8        # columns per kernel launch; vals+c16 stream once per launch
+register("well_spmv", "reference")(sell_spmv_reference)
 
 
 @register("well_spmv", "cuda")
-def well_spmv_cuda(vals, c16, q0, xbase_row, meta_items, b):
-    """Windowed-ELL SpMV/SpMM on the CUDA kernel, one launch per <= 8
-    columns.  f32 only, as the TPU kernel.
+def well_spmv_cuda(sell, sell_meta, b):
+    """Kernel G: the windowed-ELL SpMV/SpMM over the layout's compact
+    stream (``spmv_sell.sell_from_windowed``) on ``csrc/sell_spmv.cu``, one
+    launch per <= 8 columns.  f32 only, as the TPU kernel.
 
     A tensor on the CPU takes the plain version; on a CUDA device this
     launches the kernel or raises — it never falls back."""
     if b.device.type != "cuda":
-        return well_spmv_reference(vals, c16, q0, xbase_row, meta_items, b)
-    meta = dict(meta_items)
-    n, m, Gs, w, w8 = (meta[key] for key in ("n", "m", "Gs", "w", "w8"))
-    if vals.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"well_spmv kernel takes f32 values and vectors, "
-                        f"got ({vals.dtype}, {b.dtype})")
-    slab = (Gs, w, 8, LANES)
-    if (tuple(vals.shape) != slab or tuple(c16.shape) != slab
-            or c16.dtype != torch.int16 or w != 8 * w8
-            or tuple(q0.shape) != (Gs * _BLOCKS_PER_SB * w8,)
-            or q0.dtype != torch.int32 or tuple(xbase_row.shape) != (Gs,)
-            or xbase_row.dtype != torch.int32
-            or b.ndim != 2 or b.shape[0] != m or n > Gs * _SB_ROWS):
-        raise ValueError(
-            f"well_spmv: layout vals {tuple(vals.shape)} c16 "
-            f"{tuple(c16.shape)}/{c16.dtype} q0 {tuple(q0.shape)}/{q0.dtype}"
-            f" xbase {tuple(xbase_row.shape)}/{xbase_row.dtype} and b "
-            f"{tuple(b.shape)} do not fit meta {meta}")
-    if any(t.device != b.device for t in (vals, c16, q0, xbase_row)):
-        raise ValueError("well_spmv: layout and b must share one device")
-    if not all(t.is_contiguous() for t in (vals, c16, xbase_row, b)):
-        raise ValueError("well_spmv: layout and b must be contiguous")
-    k = b.shape[1]
-    y = torch.empty((n, k), dtype=b.dtype, device=b.device)
-    if n == 0 or k == 0:
-        return y
-    lib = _cuda.library("well_spmv")
-    code32 = _cuda.type_code(torch.float32)
-    esize = b.element_size()
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream(b.device).cuda_stream
-        for c0 in range(0, k, MAX_RHS):
-            kc = min(MAX_RHS, k - c0)
-            code = lib.well_spmv_launch(
-                code32, code32, vals.data_ptr(), c16.data_ptr(),
-                xbase_row.data_ptr(), w, n, m, b.data_ptr() + c0 * esize, k,
-                y.data_ptr() + c0 * esize, k, kc, stream)
-            _cuda.check("well_spmv", code)
-            well_spmv_cuda.launches += 1
-    return y
+        return sell_spmv_reference(sell, sell_meta, b)
+    return spmv_sell.launch_f32(sell, sell_meta, b, "well_spmv",
+                                well_spmv_cuda)
 
 
 well_spmv_cuda.launches = 0    # kernel launches since the last reset
 
 
-def upload(layout, tail, device):
+def upload_layout(layout, tail, device):
     """A planner's numpy ``layout`` arrays and COO ``tail`` as tensors on
     ``device``, in their planned dtypes; ``meta`` is carried over."""
     out = {key: torch.from_numpy(arr).to(device)
@@ -248,6 +216,16 @@ def upload(layout, tail, device):
     out["tail"] = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                         for a in tail)
     return out
+
+
+def upload(layout, tail, device):
+    """The planned ``layout`` and COO ``tail`` as tensors on ``device``
+    (``upload_layout``), plus the slab's compact stream ``sell`` and its
+    ``sell_meta``, built there."""
+    t = upload_layout(layout, tail, device)
+    t["sell"], t["sell_meta"] = sell_from_windowed(
+        t["vals"], t["c16"], t["xbase_row"], t["meta"])
+    return t
 
 
 def add_tail(y, tail, b):
@@ -259,8 +237,7 @@ def add_tail(y, tail, b):
 
 
 def well_spmv_apply(t, b):
-    """A @ b for an uploaded plan ``t``: the ELL part on the tier of b's
-    device (the kernel on CUDA) plus the COO tail."""
-    y = lookup("well_spmv", b.device)(*(t[key] for key in ARRAYS),
-                                      t["meta"], b)
+    """A @ b for an uploaded plan ``t``: the compact stream on the tier of
+    b's device (kernel G on CUDA) plus the COO tail."""
+    y = lookup("well_spmv", b.device)(t["sell"], t["sell_meta"], b)
     return add_tail(y, t["tail"], b)

@@ -1,16 +1,19 @@
-// Compact sliced-ELL SpMV/SpMM for Hopper (sm_90a): kernels B and H.
+// Compact sliced-ELL SpMV/SpMM for Hopper (sm_90a): kernels B, G and H.
 //
-// Replaces two Pallas TPU kernels that compute the same function on two
+// Replaces three Pallas TPU kernels that compute the same function on three
 // slab layouts:
 //   B  ginkgo_tpu/ops/spmv_packed.py::_pell_kernel (packed-slot windowed ELL,
 //      built by _build_pell_call, driven by pell_spmv_tpu);
+//   G  ginkgo_tpu/ops/attic/spmv_windowed.py::_well_kernel (windowed ELL,
+//      built by _build_well_call, driven by well_spmv_pallas);
 //   H  ginkgo_tpu/ops/attic/spmv_chunked.py::_cell_kernel (chunk ELL, built
 //      by _build_cell_call, driven by cell_spmv_pallas).
-// Both slabs give each (128-row block, x chunk) as many slots as its densest
-// row, rounded up to vregs of 8, for the TPU's sublane/lane gathers: the
-// packed main-path slab holds 3.6x the kept entries, H's FEM slab 5.5x.
+// Each slab gives a 128-row block (H: a block and x chunk) as many slots as
+// its densest row, rounded up to vregs of 8, for the TPU's sublane/lane
+// gathers: the packed main-path slab holds 3.6x the kept entries, H's FEM
+// slab 5.5x.
 // Read as they are, they floor any kernel at the slab's bytes.  So
-// ginkgo_tpu_torch/ops/spmv_sell.py repacks either slab once, at set-up,
+// ginkgo_tpu_torch/ops/spmv_sell.py repacks each slab once, at set-up,
 // into the stream this kernel reads, padding lanes (value 0) dropped:
 //
 //   slice s = rows [32 s, 32 s + 32), a warp (32 slices a 1024-row

@@ -1,13 +1,15 @@
-"""The compact sliced stream behind kernels B and H.
+"""The compact sliced stream behind kernels B, G and H.
 
-The TPU's packed-slot slab (``ops/spmv_packed.py``) and chunk-ELL slab
-(``ops/attic/spmv_chunked.py``) give each (128-row block, x chunk) as many
-slots as its densest row, rounded up to vregs of 8: a sublane/lane shape
-for the TPU's gathers.  On the permuted main-path stencil the slab holds
-3.6 times the kept entries, on the FEM matrix 3.4 (packed) and 5.5
-(chunked) times.  Hopper needs none of it, so each slab is repacked once,
-at set-up and on the slab's own device, into one stream that both kernels'
-wrappers hand to ``csrc/sell_spmv.cu``:
+The TPU's packed-slot slab (``ops/spmv_packed.py``), windowed-ELL slab
+(``ops/attic/spmv_windowed.py``) and chunk-ELL slab
+(``ops/attic/spmv_chunked.py``) give each 128-row block as many slots as
+its densest row (for the chunk-ELL slab, a block and x chunk), rounded up
+to vregs of 8: a sublane/lane shape for the TPU's gathers.  On the
+permuted main-path stencil the packed slab holds 3.6 times the kept
+entries, on the FEM matrix 3.4 (packed) and 5.5 (chunked) times.  Hopper
+needs none of it, so each slab is repacked once, at set-up and on the
+slab's own device, into one stream that the three kernels' wrappers hand
+to ``csrc/sell_spmv.cu``:
 
 - slices of 32 consecutive rows (a warp); 32 slices to a 1024-row
   superblock, so a slice never crosses one;
@@ -99,6 +101,21 @@ def sell_from_chunked(vals, lanes, qid, xbase_row, meta):
     return _compact(vals, rel_col, xbase_row, meta)
 
 
+def sell_from_windowed(vals, c16, xbase_row, meta):
+    """The stream of kernel G's windowed-ELL slab: axis 1 is ``b*w8 + j``
+    with sublane ``s`` (slot 8j+s of row 128 b + lane), so the slab walks
+    as a packed one with ``Wv = w8``, and the column of slab entry e is
+    ``xbase_row[t] * 128 + c16[e]`` (``attic.spmv_windowed.
+    well_spmv_reference``).  Returns (sell, meta items)."""
+    c16_flat = c16.reshape(-1)
+    meta = dict(meta, Wv=dict(meta)["w8"])
+
+    def rel_col(e):
+        return c16_flat[e].long()
+
+    return _compact(vals, rel_col, xbase_row, tuple(sorted(meta.items())))
+
+
 def sell_spmv_reference(sell, meta_items, b):
     """Plain version of ``csrc/sell_spmv.cu``: every stream entry's
     product added to its row, in stream order (so each row in slab
@@ -159,3 +176,17 @@ def launch(sell, meta_items, b, y, c0):
             b.data_ptr() + c0 * esize, k, y.data_ptr() + c0 * esize, k,
             min(MAX_RHS, k - c0), stream)
     _cuda.check("sell_spmv", code)
+
+
+def launch_f32(sell, meta_items, b, name, wrapper):
+    """The attic kernels' CUDA path (G, H: f32 only, as their TPU kernels):
+    one launch of ``csrc/sell_spmv.cu`` per <= 8 columns of ``b``, each
+    counted on ``wrapper.launches``; raises on other types."""
+    if sell["sv"].dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"{name} kernel takes f32 values and vectors, "
+                        f"got ({sell['sv'].dtype}, {b.dtype})")
+    y = prepare(sell, meta_items, b, name)
+    for c0 in range(0, b.shape[1], MAX_RHS):
+        launch(sell, meta_items, b, y, c0)
+        wrapper.launches += 1
+    return y

@@ -180,23 +180,26 @@ def test_attic_is_not_imported_by_the_package():
 
 def test_cuda_wrappers_take_the_plain_version_on_the_cpu():
     """On CPU tensors the registered cuda tier is the plain version and
-    counts no launch.  Kernel H's wrapper takes the slab's compact stream
-    (``ops/spmv_sell.py``), so its plain version is the stream's."""
+    counts no launch.  Kernels G and H take their slab's compact stream
+    (``ops/spmv_sell.py``), so the plain version of both is the stream's,
+    which agrees with the slab's own (``well_spmv_reference``,
+    ``cell_spmv_reference``)."""
     from ginkgo_tpu_torch.ops import registry, spmv_sell
     case = _random_local(700, 2, 10, 300, 5)
+    plain = spmv_sell.sell_spmv_reference
     for kind in KINDS:
         _, (tl, tt, _), n, _ = _plan(kind, case)
         _, tmod, _, name, _ = KINDS[kind]
-        t = tmod.upload(tl, tt, "cpu")
-        if kind == "windowed":
-            plain = TW.well_spmv_reference
-            args = [t[k] for k in TW.ARRAYS] + [t["meta"]]
-        else:
-            plain = spmv_sell.sell_spmv_reference
-            args = [t["sell"], t["sell_meta"]]
+        t = tmod.upload(dict(tl, vals=tl["vals"].astype(np.float64)), tt,
+                        "cpu")
+        args = [t["sell"], t["sell_meta"]]
         assert registry.lookup(name, "cpu") is plain
         b = torch.ones((n, 2), dtype=torch.float64)
         before = getattr(tmod, f"{name}_cuda").launches
         y = getattr(tmod, f"{name}_cuda")(*args, b)
         assert getattr(tmod, f"{name}_cuda").launches == before
         assert torch.equal(y, plain(*args, b))
+        slab = getattr(tmod, f"{name}_reference")(
+            *(t[k] for k in tmod.ARRAYS), t["meta"], b)
+        np.testing.assert_allclose(y.numpy(), slab.numpy(), rtol=1e-12,
+                                   atol=1e-12 * float(slab.abs().max()))

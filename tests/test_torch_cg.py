@@ -146,8 +146,13 @@ def test_factory_surface_and_block_jacobi_raises():
     x = solver.apply(torch.ones(A.shape[0], dtype=torch.float64))
     r = torch.ones(A.shape[0], dtype=torch.float64) - A.apply(x)
     assert float(r.norm()) < 1e-8 * A.shape[0] ** 0.5
-    with pytest.raises(NotImplementedError, match="gauss_jordan"):
-        Jacobi(max_block_size=4)
+    # block Jacobi generates (tests/test_torch_block_jacobi.py holds it
+    # against the JAX package) and preconditions the same solver
+    block = Cg.build(criteria=Iteration(200) | ResidualNorm(1e-10),
+                     preconditioner=Jacobi(max_block_size=4)).generate(A)
+    x = block.apply(torch.ones(A.shape[0], dtype=torch.float64))
+    r = torch.ones(A.shape[0], dtype=torch.float64) - A.apply(x)
+    assert float(r.norm()) < 1e-8 * A.shape[0] ** 0.5
     # trace=True: the residual norm of every trip, shaped as the
     # reference's fixed-length scan (cap + 1, k), with equal iterations
     b = _rhs(A.shape[0], seed=3)

@@ -795,11 +795,9 @@ def _attic_plan(kind, dev, capped):
     return mod, name, mod.upload(layout, tail, dev), d
 
 
-def _attic_args(kind, t):
-    """The kernel wrapper's layout arguments: G's slab, H's compact
-    stream."""
-    if kind == "windowed":
-        return [t[key] for key in spmv_windowed.ARRAYS] + [t["meta"]]
+def _attic_args(t):
+    """The kernel wrapper's layout arguments: the slab's compact stream
+    (G's and H's alike)."""
     return [t["sell"], t["sell_meta"]]
 
 
@@ -811,16 +809,15 @@ def test_attic_kernels_match_plain(dev, kind, capped, k):
     kernel = getattr(mod, f"{name}_cuda")
     x = torch.randn((d.shape[1], k), dtype=torch.float32, device=dev)
     before = kernel.launches
-    y = kernel(*_attic_args(kind, t), x)
+    y = kernel(*_attic_args(t), x)
     torch.cuda.synchronize()
     assert kernel.launches - before == -(-k // 8)
-    # against the slab's plain version (for H also the stream's)
+    # against the slab's plain version and the stream's
     slab = [t[key] for key in mod.ARRAYS]
     want = getattr(mod, f"{name}_reference")(*slab, t["meta"], x)
     assert _rel_err(y, want) <= 1e-5
-    if kind == "chunked":
-        assert _rel_err(y, spmv_sell.sell_spmv_reference(
-            t["sell"], t["sell_meta"], x)) <= 1e-5
+    assert _rel_err(y, spmv_sell.sell_spmv_reference(
+        t["sell"], t["sell_meta"], x)) <= 1e-5
     # the apply (kernel plus the COO tail) against an f64 product
     y = getattr(mod, f"{name}_apply")(t, x)
     A = torch.sparse_coo_tensor(
@@ -833,13 +830,9 @@ def test_attic_wrappers_raise_instead_of_falling_back(dev):
     for kind in ATTIC:
         mod, name, t, d = _attic_plan(kind, dev, False)
         kernel = getattr(mod, f"{name}_cuda")
-        args = _attic_args(kind, t)
-        if kind == "windowed":
-            f64, on_cpu = [args[0].double(), *args[1:]], \
-                [args[0].cpu(), *args[1:]]
-        else:
-            f64 = [dict(args[0], sv=args[0]["sv"].double()), args[1]]
-            on_cpu = [dict(args[0], sv=args[0]["sv"].cpu()), args[1]]
+        args = _attic_args(t)
+        f64 = [dict(args[0], sv=args[0]["sv"].double()), args[1]]
+        on_cpu = [dict(args[0], sv=args[0]["sv"].cpu()), args[1]]
         x = torch.ones((d.shape[1], 2), dtype=torch.float32, device=dev)
         with pytest.raises(TypeError):
             kernel(*args, x.double())

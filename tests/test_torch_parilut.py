@@ -253,18 +253,28 @@ def test_auto_routes_like_jax(monkeypatch):
     assert tdia.plan_dia(d.canonical()) is None
 
 
-def test_dia_loop_raises_where_its_plan_accepts():
-    """The device DIA loop is still to be ported: where ``plan_dia``
-    accepts, ``generate_dia`` raises naming the ROADMAP item (so ``auto``
-    on a CUDA stencil raises); where it declines it returns None."""
+@pytest.fixture
+def one_torch_thread():
+    """Torch on one thread for a DIA generate (thousands of small ops,
+    whose thread pools oversubscribe the cores under parallel workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_dia_loop_raises_where_its_plan_accepts(one_torch_thread):
+    """The device DIA loop no longer raises where ``plan_dia`` accepts: it
+    returns the split factors (``ParIlut(algorithm="dia")`` takes the
+    ``dia`` route); where the plan declines it returns None.
+    ``tests/test_torch_parilut_dia.py`` holds the factors against the JAX
+    package's."""
     s = stencil_3d(8, points=27).canonical()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdia.generate_dia(s, 2, 2.0, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdia.generate_dia_ict(s, 2, 2.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ParIlut(iterations=2, algorithm="dia").generate(
-            gtt.Csr.from_data(s, device="cpu"))
+    assert len(tdia.generate_dia(s, 2, 2.0, 1)) == 6
+    assert len(tdia.generate_dia_ict(s, 2, 2.0)) == 3
+    F = ParIlut(iterations=2, algorithm="dia").generate(
+        gtt.Csr.from_data(s, device="cpu"))
+    assert F.route == "dia"
     fem = build_matrix_data({"fem": 1024, "offscale": 1.2}).canonical()
     assert tdia.generate_dia(fem, 2, 2.0, 1) is None
     assert tdia.generate_dia_ict(fem, 2, 2.0) is None

@@ -1,10 +1,12 @@
-"""The compact sliced stream behind kernels B and H (``ops/spmv_sell.py``).
+"""The compact sliced stream behind kernels B, G and H
+(``ops/spmv_sell.py``).
 
-Each planned slab (packed-slot, chunk-ELL) is repacked into 32-row slices
-without the slab's padding lanes.  Held here:
+Each planned slab (packed-slot, windowed-ELL, chunk-ELL) is repacked into
+32-row slices without the slab's padding lanes.  Held here:
 
 - the stream's plain version against the slab's plain version in the port
   and in ``ginkgo_tpu`` (``ops/spmv_packed.pell_spmv_reference``,
+  ``ops/attic/spmv_windowed.well_spmv_reference``,
   ``ops/attic/spmv_chunked.cell_spmv_reference``) on the same planned
   arrays, k in {1, 3, 9}, f32 and f64.  Tolerance relative to max |y|:
   1e-12 in f64, 1e-5 in f32 (the sums run in another order);
@@ -28,10 +30,11 @@ import torch
 import ginkgo_tpu_torch as gtt
 from ginkgo_tpu.ops import spmv_packed as jpk
 from ginkgo_tpu.ops.attic import spmv_chunked as jch
+from ginkgo_tpu.ops.attic import spmv_windowed as jwin
 from ginkgo_tpu_torch.benchmark import build_matrix_data
 from ginkgo_tpu_torch.interop import csr_from_arrays
 from ginkgo_tpu_torch.ops import spmv_packed, spmv_sell
-from ginkgo_tpu_torch.ops.attic import spmv_chunked
+from ginkgo_tpu_torch.ops.attic import spmv_chunked, spmv_windowed
 from ginkgo_tpu_torch.utils import generators as tgen
 
 RTOL = {np.float64: 1e-12, np.float32: 1e-5}
@@ -122,12 +125,29 @@ def _chunked(name, capped):
     return d, layout
 
 
+@functools.lru_cache(maxsize=None)
+def _windowed(name, capped):
+    """Kernel G's slab of an attic case; ``capped`` forces a larger tail
+    (the attic tests' ``h_quantile=0.5``; the default keeps 99.5 %)."""
+    d = CHUNKED_CASES[name]().canonical()
+    layout, tail, stats = spmv_windowed.plan_windowed_layout(
+        d, d.values, **({"h_quantile": 0.5} if capped else {}))
+    assert stats["tail_nnz"] > 0 or not capped
+    return d, layout
+
+
 def _stream(kind, layout, dtype=np.float64):
     """(slab arrays, stream, stream meta) of a planned layout whose
     values are cast to ``dtype``."""
-    names = PACKED_ARRAYS if kind == "packed" else spmv_chunked.ARRAYS
+    names = {"packed": PACKED_ARRAYS, "chunked": spmv_chunked.ARRAYS,
+             "windowed": spmv_windowed.ARRAYS}[kind]
     arrays = [torch.from_numpy(layout[a]) for a in names]
     arrays[0] = arrays[0].to(torch.from_numpy(np.zeros(0, dtype)).dtype)
+    if kind == "windowed":                  # q0 serves the TPU only
+        vals, c16, _, xbase_row = arrays
+        sell, smeta = spmv_sell.sell_from_windowed(vals, c16, xbase_row,
+                                                   layout["meta"])
+        return arrays, sell, smeta
     build = (spmv_sell.sell_from_packed if kind == "packed"
              else spmv_sell.sell_from_chunked)
     sell, smeta = build(*arrays, layout["meta"])
@@ -171,20 +191,42 @@ def test_chunked_stream_matches_slab_oracles(name, capped, k, dtype):
     _close(got.numpy(), jax, RTOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=str)
+@pytest.mark.parametrize("k", [1, 3, 9])
+@pytest.mark.parametrize("capped", [False, True], ids=["", "capped"])
+@pytest.mark.parametrize("name", list(CHUNKED_CASES))
+def test_windowed_stream_matches_slab_oracles(name, capped, k, dtype):
+    d, layout = _windowed(name, capped)
+    arrays, sell, smeta = _stream("windowed", layout, dtype)
+    x = np.random.default_rng(k).standard_normal((d.shape[1], k)).astype(
+        dtype)
+    got = spmv_sell.sell_spmv_reference(sell, smeta, torch.from_numpy(x))
+    assert got.shape == (d.shape[0], k) and got.dtype == arrays[0].dtype
+    port = spmv_windowed.well_spmv_reference(*arrays, layout["meta"],
+                                             torch.from_numpy(x))
+    jax = jwin.well_spmv_reference(*(jnp.asarray(a.numpy())
+                                     for a in arrays), layout["meta"],
+                                   jnp.asarray(x))
+    _close(got.numpy(), port.numpy(), RTOL[dtype])
+    _close(got.numpy(), jax, RTOL[dtype])
+
+
 def _slab_rows(kind, layout):
     """Each row's nonzero slab lanes in slab order (vreg, then sublane),
     left-aligned: (values, window-relative columns), zeros past the row's
     last entry."""
     meta = dict(layout["meta"])
-    Gs, Wv = meta["Gs"], meta["Wv"]
+    Gs, Wv = meta["Gs"], meta.get("Wv", meta.get("w8"))
     vals = layout["vals"].reshape(Gs, 8, Wv, 8, 128).astype(np.float64)
-    per_vreg = (layout["qw"] if kind == "packed" else layout["qid"])
-    per_vreg = per_vreg.reshape(Gs, 8, Wv, 1, 1).astype(np.int64)
-    if kind == "packed":
+    if kind == "windowed":                  # window-relative already
+        col = layout["c16"].reshape(Gs, 8, Wv, 8, 128).astype(np.int64)
+    elif kind == "packed":
+        qw = layout["qw"].reshape(Gs, 8, Wv, 1, 1).astype(np.int64)
         i = layout["idx"].reshape(Gs, 8, Wv, 8, 128).astype(np.int64)
-        col = (8 * per_vreg + (i >> 7)) * 128 + (i & 127)
+        col = (8 * qw + (i >> 7)) * 128 + (i & 127)
     else:
-        col = per_vreg * 128 + layout["lanes"].reshape(
+        qid = layout["qid"].reshape(Gs, 8, Wv, 1, 1).astype(np.int64)
+        col = qid * 128 + layout["lanes"].reshape(
             Gs, 8, Wv, 8, 128).astype(np.int64)
     order = (0, 1, 4, 2, 3)                # (row in superblock, v, s)
     vals = vals.transpose(order).reshape(Gs * 1024, Wv * 8)
@@ -217,15 +259,18 @@ def _stream_rows(sell, smeta):
 
 
 STRUCTURE_CASES = ([("packed", name, False) for name in PACKED_CASES]
-                   + [("chunked", name, capped) for name in CHUNKED_CASES
-                      for capped in (False, True)])
+                   + [(kind, name, capped)
+                      for kind in ("chunked", "windowed")
+                      for name in CHUNKED_CASES for capped in (False, True)])
+_SLABS = {"packed": lambda name, capped: _packed(name),
+          "chunked": _chunked, "windowed": _windowed}
 
 
 @pytest.mark.parametrize("kind,name,capped", STRUCTURE_CASES,
                          ids=[f"{k}-{n}{'-capped' * c}"
                               for k, n, c in STRUCTURE_CASES])
 def test_stream_holds_the_slab_nonzero_lanes(kind, name, capped):
-    d, layout = _packed(name) if kind == "packed" else _chunked(name, capped)
+    d, layout = _SLABS[kind](name, capped)
     _, sell, smeta = _stream(kind, layout)
     meta, sm = dict(layout["meta"]), dict(smeta)
     n = d.shape[0]
