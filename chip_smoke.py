@@ -101,6 +101,32 @@ exits non-zero:
 18c. small f64 runs on the card agree with the port's CPU run: DIA
    ParILUT and ParICT factors at nx = 8, block-Jacobi CG (block size 4,
    adaptive, natural blocks);
+18d. main path, the format zoo on kernel A: ``Coo``, ``Ell``, ``Sellp``,
+   ``Hybrid`` (``automatic``, 0.8) and ``Fbcsr(4)`` of the nx=160 stencil
+   (f32) must plan ``banded``;
+   each applies at k = 1 and 3 against the plain COO product in f64 on
+   the card, one kernel-A launch an apply, timed beside the ``Csr``'s
+   apply, with its ``from_data`` seconds and card bytes; Jacobi-CG with
+   the ``Ell`` operator takes phase 6's iterations and x bit for bit;
+   ``SparsityCsr`` of the pattern applied to ones is value x its row
+   sums;
+18e. Matrix Market and binary I/O: the ILU system's FEM matrix written
+   with ``write_mtx`` and read back on the native path and through
+   ``build_matrix_data({"filename": ...})``, and through ``write_binary``/
+   ``read_binary`` in f64/int64 and f32/int32, each equal to the
+   generated entries, with the seconds of each;
+18f. main path, the format zoo on kernel B: ``Coo``, ``Ell``, ``Sellp``,
+   ``Hybrid`` (``minimal_storage_limit``) and ``Fbcsr(4)`` of the data
+   read back must plan ``packed``, held and timed as in 18d; BiCGSTAB without a
+   preconditioner on the ``Hybrid`` takes the bare ``Csr`` solve's
+   iterations (phase 8); ``Csr.permute`` by a seeded permutation agrees
+   with ``Permutation`` on both sides; ``RowGatherer`` and ``CsrLookup``
+   (a million seeded queries) agree with host numpy; ``Fft3(160)`` on a
+   seeded complex64 grid agrees with ``numpy.fft.fftn`` in f64;
+18g. every format on small f64 and complex128 matrices, banded and
+   packed (the complex ones on the complex instantiations of A and B),
+   on the card against the port's CPU run: applies to 1e-12,
+   ``to_matrix_data`` and the conversions exactly;
 19. the complex path at full width: ``Csr.from_data(..., dtype=
    np.complex64)`` of A = P (1 + 0.02i) + 0.5i I (P the nx=160 stencil,
    ``banded`` layout), of the Hermitian H = P + 1.02 I + 0.02i (U - U^T)
@@ -143,6 +169,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -152,6 +179,7 @@ import bench_torch
 import graft_entry_torch
 import ginkgo_tpu_torch as gtt
 from ginkgo_tpu_torch import native
+from ginkgo_tpu_torch.base.linop import tensor_leaves
 from ginkgo_tpu_torch.benchmark import build_matrix_data
 from ginkgo_tpu_torch.factorization import (ParIct, ParIlu, ParIlut,
                                             par_ilut_packed)
@@ -159,6 +187,8 @@ from ginkgo_tpu_torch.ops import (_cuda, pair_contract, registry,
                                   row_write, spmv_banded, spmv_packed,
                                   spmv_sell, tri_packed)
 from ginkgo_tpu_torch.ops.attic import spmv_chunked, spmv_windowed
+from ginkgo_tpu_torch.matrix.csr_lookup import CsrLookup
+from ginkgo_tpu_torch.matrix.permutation import permute_data
 from ginkgo_tpu_torch.ops.spmv import coo_spmv
 from ginkgo_tpu_torch.preconditioner import Ic, Ilu, Jacobi
 from ginkgo_tpu_torch.solver import (Bicg, Bicgstab, CbGmres, Cg, Cgs,
@@ -259,6 +289,21 @@ COMPLEX_PAIRS = ((torch.complex64, torch.complex64),
                  (torch.float16, torch.complex64),
                  (torch.complex64, torch.float32),
                  (torch.complex128, torch.complex128))
+# the format zoo (kernels A and B through each format's SpmvPlan), on the
+# nx=160 stencil and on the ILU system's FEM matrix read back from its
+# Matrix Market file
+FORMAT_BUILDS = {
+    "Coo": lambda d, **kw: gtt.Coo.from_data(d, **kw),
+    "Ell": lambda d, **kw: gtt.Ell.from_data(d, **kw),
+    "Sellp": lambda d, **kw: gtt.Sellp.from_data(d, **kw),
+    "Hybrid": lambda d, strategy="automatic", **kw: gtt.Hybrid.from_data(
+        d, strategy=strategy, percent=0.8, **kw),
+    "Fbcsr": lambda d, **kw: gtt.Fbcsr.from_data(d, block_size=4, **kw),
+}
+# the packed solve's Hybrid (BiCGSTAB without a preconditioner)
+HYBRID_SOLVE_STRATEGY = "minimal_storage_limit"
+LOOKUP_QUERIES = 1_000_000
+FFT_EDGE = BANDED_NX
 DEV = torch.device("cuda")
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 1e-5,
        torch.float16: 1e-5, torch.complex64: 1e-5, torch.complex128: 1e-12}
@@ -786,7 +831,7 @@ def true_rel_residual(A, b, x):
 
 def main_path(label, A, strategy, kernel):
     """Jacobi-CG on ``A`` through the port's entry points; returns every
-    kernel's launches during the solve and its iterations."""
+    kernel's launches during the solve, its iterations and its x."""
     assert A.strategy == strategy, (label, A.strategy)
     n = A.shape[0]
     b = torch.ones(n, dtype=torch.float32, device=DEV)
@@ -812,7 +857,7 @@ def main_path(label, A, strategy, kernel):
     if not (np.isfinite(true_rel) and true_rel <= TRUE_RESIDUAL_LIMIT):
         raise AssertionError(f"{label}: true relative residual {true_rel:.3e}"
                              f" > {TRUE_RESIDUAL_LIMIT}")
-    return launches, iters
+    return launches, iters, res.x
 
 
 def check_iterations(label, iters):
@@ -2164,6 +2209,343 @@ def small_complex_match_cpu():
         say("small_complex", layout=kind, n=n, iterations=iters)
 
 
+# -- the format zoo ---------------------------------------------------------------
+def card_bytes(op):
+    """Bytes of the tensors ``op`` holds on the card (a packed plan's slab,
+    kept on the host, is not counted)."""
+    return sum(t.numel() * t.element_size() for t in tensor_leaves(op)
+               if t.device.type == "cuda")
+
+
+def build_format(name, data, **kw):
+    t0 = time.perf_counter()
+    op = FORMAT_BUILDS[name](data, dtype=np.float32, **kw)
+    torch.cuda.synchronize()
+    return op, time.perf_counter() - t0
+
+
+def check_format(label, name, op, setup_s, strategy, kernel, ref):
+    """``op`` (built from the data ``ref``, the ``Csr``, was built from)
+    must carry a ``strategy`` plan; its applies at k = 1 and 3 through the
+    port's entry point are held against the plain COO product of ``ref``'s
+    entries in f64 on the card, and must launch ``kernel`` once each.
+    Returns the counted launches and the format's report, with one apply
+    timed as kernel A is, beside ``ref``'s apply in the same call."""
+    got = None if op.fast_op is None else op.fast_op.strategy
+    if got != strategy:
+        raise AssertionError(f"{label} {name}: plan {got}, where Csr takes "
+                             f"{strategy}")
+    n = ref.shape[0]
+    vals64 = ref.values.double()
+    xs = [torch.randn((n, k), dtype=torch.float32, device=DEV)
+          for k in (1, 3)]
+    reset_counters()
+    ys = [op.apply(x) for x in xs]
+    launches = read_counters()
+    errs = []
+    for x, y in zip(xs, ys):
+        want = coo_spmv(ref.row_idx, ref.col_idx, vals64, x.double(), n)
+        assert y.shape == want.shape and bool(torch.isfinite(y).all())
+        errs.append(rel_err(y, want)[0])
+    if launches[kernel] != len(xs):
+        raise AssertionError(f"{label} {name}: {launches[kernel]} launches "
+                             f"of {kernel} for {len(xs)} applies")
+    if not max(errs) <= TOL[torch.float32]:
+        raise AssertionError(f"{label} {name}: rel err {max(errs):.3e} "
+                             f"against the f64 COO product")
+    x = xs[0]
+    ms = time_ms(lambda: op.apply(x), 50, queue_ahead=True)
+    csr_ms = time_ms(lambda: ref.apply(x), 50, queue_ahead=True)
+    return launches, dict(setup_s=setup_s, apply_ms=ms, csr_apply_ms=csr_ms,
+                          launches=launches[kernel], max_rel_err=max(errs),
+                          card_bytes=card_bytes(op),
+                          plan_card_bytes=card_bytes(op.fast_op))
+
+
+def main_formats_banded(data, A, csr_iters, csr_x):
+    """Every format of the nx=160 stencil (``Hybrid``: ``automatic``,
+    ``percent=0.8``) through kernel A, then Jacobi-CG with the ``Ell`` operator (its
+    Jacobi from ``A``, the phase-6 ``Csr`` of the same data): the same
+    iterations and, the same arrays reaching the same kernel, the same x
+    bit for bit.  Then ``SparsityCsr`` of the pattern against value x the
+    pattern's row sums.  Returns the counted launches."""
+    runs, report = [], {}
+    for name in FORMAT_BUILDS:
+        op, setup_s = build_format(name, data)
+        launches, report[name] = check_format(
+            "main_formats_banded", name, op, setup_s, "banded", "dia_spmv",
+            A)
+        runs.append(launches)
+        if name == "Ell":
+            E = op
+        del op
+    say("main_formats_banded", n=A.shape[0], nnz=A.nnz, formats=report)
+
+    n = A.shape[0]
+    b = torch.ones(n, dtype=torch.float32, device=DEV)
+    M = Jacobi().generate(A)
+    reset_counters()
+    t0 = time.perf_counter()
+    res = Cg.solve(E, b, criteria=Iteration(2000) | ResidualNorm(SOLVE_TOL),
+                   preconditioner=M)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    runs.append(launches)
+    iters = int(res.iterations[0])
+    true_rel = true_rel_residual(A, b, res.x)
+    same_x = bool(torch.equal(res.x, csr_x))
+    say("main_ell_cg", iterations=iters, csr_iterations=csr_iters,
+        converged=bool(res.converged.all()), solve_s=seconds,
+        ms_per_iteration=seconds * 1e3 / max(iters, 1),
+        true_rel_residual=true_rel, x_equal_to_csr=same_x,
+        launches=launches)
+    if launches["dia_spmv"] <= 0 or not bool(res.converged.all()):
+        raise AssertionError("Ell CG: no kernel A launch, or no convergence")
+    if iters != csr_iters or not same_x:
+        raise AssertionError(f"Ell CG: {iters} iterations (x equal: "
+                             f"{same_x}) where the Csr took {csr_iters}")
+    if not (np.isfinite(true_rel) and true_rel <= TRUE_RESIDUAL_LIMIT):
+        raise AssertionError(f"Ell CG: true relative residual {true_rel:.3e}")
+    del E, M, res
+
+    t0 = time.perf_counter()
+    S = gtt.SparsityCsr.from_data(data, value=2.0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    ones = torch.ones((n, 1), dtype=torch.float32, device=DEV)
+    y = S.apply(ones)
+    want = 2.0 * (A.row_ptr[1:] - A.row_ptr[:-1]).to(torch.float32)[:, None]
+    if not torch.equal(y, want):
+        raise AssertionError("SparsityCsr: apply to ones is not value x the "
+                             "pattern's row sums")
+    ms = time_ms(lambda: S.apply(ones), 10)
+    say("sparsity_csr_banded", setup_s=setup_s, apply_ms=ms,
+        card_bytes=card_bytes(S), route="coo_spmv")
+    return runs
+
+
+def same_entries(got, want):
+    return (tuple(got.shape) == tuple(want.shape)
+            and np.array_equal(got.row_idx, want.row_idx)
+            and np.array_equal(got.col_idx, want.col_idx)
+            and np.array_equal(got.values, want.values))
+
+
+def phase_mtx_io(d):
+    """The ILU system's FEM matrix through Matrix Market text (written
+    with ``%.17g``, read back on the native path and through the
+    ``filename`` benchmark case) and Ginkgo's binary format in f64/int64
+    and f32/int32: each must give back the generated entries exactly.
+    Returns the data read through the ``filename`` case."""
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fem.mtx")
+        t0 = time.perf_counter()
+        gtt.write_mtx(path, d)
+        report["write_mtx_s"] = time.perf_counter() - t0
+        report["mtx_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = gtt.read_mtx(path)
+        report["read_mtx_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        case = build_matrix_data({"filename": path})
+        report["filename_case_s"] = time.perf_counter() - t0
+        if not (same_entries(back, d) and same_entries(case, d)):
+            raise AssertionError("read_mtx did not give back the written "
+                                 "entries")
+        for vdtype, idx in ((np.float64, "int64"), (np.float32, "int32")):
+            want = d.astype(vdtype)
+            bpath = os.path.join(tmp, f"fem_{idx}.bin")
+            key = f"{np.dtype(vdtype).name}_{idx}"
+            t0 = time.perf_counter()
+            gtt.write_binary(bpath, want, index_dtype=idx)
+            report[f"write_binary_{key}_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = gtt.read_binary(bpath)
+            report[f"read_binary_{key}_s"] = time.perf_counter() - t0
+            report[f"binary_{key}_bytes"] = os.path.getsize(bpath)
+            if not same_entries(got, want) or got.values.dtype != vdtype:
+                raise AssertionError(f"read_binary ({key}) did not give "
+                                     f"back the written entries")
+    say("mtx_io", n=d.shape[0], nnz=d.nnz, native=True, **report)
+    return case
+
+
+def lookup_oracle(d, rows, cols):
+    """Host numpy: the index of each (row, col) among the canonical
+    entries, -1 where absent."""
+    keys = d.row_idx.astype(np.int64) * d.shape[1] + d.col_idx
+    q = rows.astype(np.int64) * d.shape[1] + cols
+    pos = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+    return np.where(keys[pos] == q, pos, -1)
+
+
+def main_formats_packed(d, A, bare_iters):
+    """Every format of the FEM matrix read back from its file, through
+    kernel B (``packed``); BiCGSTAB without a preconditioner on the Hybrid
+    (``minimal_storage_limit``) in the bare ``Csr`` solve's iterations;
+    ``Csr.permute`` against ``Permutation`` on both sides; ``RowGatherer``
+    and ``CsrLookup`` against host numpy; ``Fft3(160)`` against
+    ``numpy.fft.fftn`` in f64.  Returns the counted launches."""
+    runs, report = [], {}
+    for name in FORMAT_BUILDS:
+        kw = ({"strategy": HYBRID_SOLVE_STRATEGY} if name == "Hybrid"
+              else {})
+        op, setup_s = build_format(name, d, **kw)
+        launches, report[name] = check_format(
+            "main_formats_packed", name, op, setup_s, "packed", "pell_spmv",
+            A)
+        runs.append(launches)
+        if name == "Hybrid":
+            H = op
+        del op
+    say("main_formats_packed", n=A.shape[0], nnz=A.nnz,
+        hybrid_strategy=HYBRID_SOLVE_STRATEGY, formats=report)
+
+    n = A.shape[0]
+    b = torch.ones(n, dtype=torch.float32, device=DEV)
+    reset_counters()
+    t0 = time.perf_counter()
+    res = Bicgstab.solve(H, b, criteria=Iteration(1000)
+                         | ResidualNorm(ILU_TOL))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    runs.append(launches)
+    iters = int(res.iterations[0])
+    true_rel = true_rel_residual(A, b, res.x)
+    say("main_hybrid_bicgstab", iterations=iters,
+        csr_iterations=bare_iters, converged=bool(res.converged.all()),
+        solve_s=seconds, true_rel_residual=true_rel, launches=launches)
+    if launches["pell_spmv"] <= 0 or not bool(res.converged.all()):
+        raise AssertionError("Hybrid BiCGSTAB: no kernel B launch, or no "
+                             "convergence")
+    if iters != bare_iters:
+        raise AssertionError(f"Hybrid BiCGSTAB: {iters} iterations where "
+                             f"the bare Csr solve took {bare_iters}")
+    if not (np.isfinite(true_rel) and true_rel <= ILU_TOL):
+        raise AssertionError(f"Hybrid BiCGSTAB: true relative residual "
+                             f"{true_rel:.3e} > {ILU_TOL}")
+    del H, res
+
+    rng = np.random.default_rng(10)
+    perm = rng.permutation(n)
+    t0 = time.perf_counter()
+    B = A.permute(perm)
+    torch.cuda.synchronize()
+    permute_s = time.perf_counter() - t0
+    P = gtt.Permutation.from_indices(perm)
+    x = torch.randn((n, 2), dtype=torch.float32, device=DEV)
+    perm_err, _ = rel_err(B.apply(x), P.apply(A.apply(P.inverse().apply(x))))
+    if not perm_err <= TOL[torch.float32]:
+        raise AssertionError(f"Csr.permute disagrees with P A P^T: "
+                             f"{perm_err:.3e}")
+    if not same_entries(B.to_matrix_data(), permute_data(
+            A.to_matrix_data(), perm, gtt.permute_mode.symmetric)):
+        raise AssertionError("Csr.permute: entries differ from "
+                             "permute_data's")
+    rows = rng.integers(0, n, LOOKUP_QUERIES)
+    G = gtt.RowGatherer.from_indices(rows, num_cols=n)
+    if not np.array_equal(G.apply(x).cpu().numpy(), x.cpu().numpy()[rows]):
+        raise AssertionError("RowGatherer disagrees with host numpy")
+    t0 = time.perf_counter()
+    L = CsrLookup.build(A)
+    torch.cuda.synchronize()
+    lookup_build_s = time.perf_counter() - t0
+    dA = A.to_matrix_data()
+    cols = rng.integers(0, n, LOOKUP_QUERIES)
+    hit = rng.integers(0, dA.nnz, LOOKUP_QUERIES // 2)
+    rows[:hit.size], cols[:hit.size] = dA.row_idx[hit], dA.col_idx[hit]
+    got = L.lookup(rows, cols).cpu().numpy()
+    want = lookup_oracle(dA, rows, cols)
+    if not np.array_equal(got, want):
+        raise AssertionError("CsrLookup disagrees with host numpy")
+    say("operators_packed", permute_s=permute_s,
+        permuted_strategy=B.strategy, permute_rel_err=perm_err,
+        row_gather_queries=LOOKUP_QUERIES, lookup_build_s=lookup_build_s,
+        lookup_queries=LOOKUP_QUERIES, lookup_hits=int((got >= 0).sum()))
+    del B, G, L
+
+    grid = (rng.standard_normal((FFT_EDGE,) * 3)
+            + 1j * rng.standard_normal((FFT_EDGE,) * 3)).astype(np.complex64)
+    F = gtt.Fft3(FFT_EDGE)
+    g = torch.from_numpy(grid.reshape(-1, 1)).to(DEV)
+    y = F.apply(g)
+    want = np.fft.fftn(grid.astype(np.complex128)).reshape(-1, 1)
+    fft_err, _ = rel_err(y, torch.from_numpy(want).to(DEV))
+    back_err, _ = rel_err(gtt.Fft3(FFT_EDGE, inverse=True).apply(y), g)
+    ms = time_ms(lambda: F.apply(g), 10)
+    say("fft3", edge=FFT_EDGE, dtype=str(y.dtype), rel_err=fft_err,
+        inverse_rel_err=back_err, ms=ms)
+    if not (fft_err <= TOL[torch.complex64]
+            and back_err <= TOL[torch.complex64]):
+        raise AssertionError(f"Fft3 disagrees with numpy.fft.fftn: "
+                             f"{fft_err:.3e} (inverse {back_err:.3e})")
+    return runs
+
+
+SMALL_FORMATS = ("Coo", "Ell", "Sellp", "Hybrid", "Fbcsr", "Dense",
+                 "SparsityCsr")
+
+
+def small_formats_match_cpu():
+    """Every format on small f64 and complex128 matrices, banded and
+    packed, on the card against the port's CPU run: its apply to 1e-12,
+    and ``to_matrix_data`` and the conversions exactly.  The complex ones
+    run the complex instantiations of kernels A and B."""
+    for kind, data in (("banded", stencil_3d(10, points=27)),
+                       ("packed", permute_locally(stencil_3d(
+                           16, 16, 8, points=27)))):
+        for vdtype in (np.float64, np.complex128):
+            d = gtt.MatrixData(data.shape, data.row_idx, data.col_idx,
+                               data.values.astype(vdtype)
+                               * (1 + 0.3j if vdtype == np.complex128
+                                  else 1))
+            x = np.random.default_rng(2).standard_normal((d.shape[0], 2))
+            x = x.astype(vdtype)
+            kernel = {("banded", False): "dia_spmv",
+                      ("banded", True): "dia_spmv_complex",
+                      ("packed", False): "pell_spmv",
+                      ("packed", True): "pell_spmv_complex"}[
+                (kind, vdtype == np.complex128)]
+            reset_counters()
+            for name in SMALL_FORMATS:
+                fmt = getattr(gtt, name)
+                ops = [fmt.from_data(d, device=dev)
+                       for dev in (DEV, torch.device("cpu"))]
+                yg, yc = (op.apply(torch.from_numpy(x).to(op.device))
+                          for op in ops)
+                err, _ = rel_err(yg.cpu(), yc)
+                if not err <= 1e-12:
+                    raise AssertionError(f"small {kind} {name}: the card "
+                                         f"and the host differ by {err:.3e}")
+                mg, mc = (op.to_matrix_data() for op in ops)
+                if not same_entries(mg, mc):
+                    raise AssertionError(f"small {kind} {name}: "
+                                         f"to_matrix_data differs")
+                if hasattr(ops[0], "to_csr"):
+                    cg, cc = (op.to_csr() for op in ops)
+                    if not (cg.strategy == cc.strategy and same_entries(
+                            cg.to_matrix_data(), cc.to_matrix_data())):
+                        raise AssertionError(f"small {kind} {name}: to_csr "
+                                             f"differs")
+            Ag, Ac = (gtt.Csr.from_data(d, device=dev)
+                      for dev in (DEV, torch.device("cpu")))
+            for conv in ("to_ell", "to_sellp", "to_hybrid", "to_fbcsr",
+                         "to_sparsity_csr"):
+                if not same_entries(getattr(Ag, conv)().to_matrix_data(),
+                                    getattr(Ac, conv)().to_matrix_data()):
+                    raise AssertionError(f"small {kind}: Csr.{conv} differs")
+            launches = read_counters()
+            if launches[kernel] <= 0:
+                raise AssertionError(f"small {kind} {np.dtype(vdtype).name}"
+                                     f": the card never launched {kernel}")
+            say("small_formats", layout=kind, dtype=np.dtype(vdtype).name,
+                formats=list(SMALL_FORMATS), launches={kernel:
+                                                       launches[kernel]})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -2245,8 +2627,8 @@ def main() -> int:
     del plan
 
     ilu_launches, ilu_iters, bare_iters = main_ilu(Ai, M)
-    banded_launches, banded_iters = main_path("banded", Ab, "banded",
-                                              "dia_spmv")
+    banded_launches, banded_iters, banded_x = main_path("banded", Ab,
+                                                        "banded", "dia_spmv")
     runs = [banded_launches,
             main_path("packed", Ap, "packed", "pell_spmv")[0],
             ilu_launches, ilut_launches, regenerate_launches,
@@ -2266,7 +2648,13 @@ def main() -> int:
     small_ilut_match_cpu()
     small_gmres_match_cpu()
     runs.append(main_block_jacobi("main_block_jacobi", Ab, banded_iters))
-    del Ab, Ap
+    del Ap
+    runs += main_formats_banded(d_banded, Ab, banded_iters, banded_x)
+    del Ab, banded_x
+    d_file = phase_mtx_io(d_ilu)
+    runs += main_formats_packed(d_file, Ai, bare_iters)
+    del d_file
+    small_formats_match_cpu()
 
     # the DIA ParILUT/ParICT path and the adaptive block Jacobi at n =
     # 262,144 (the DIA loop's universe slab: 161 x n f32 for ParILUT)

@@ -12,11 +12,23 @@ from .base.exceptions import (GinkgoError, DimensionMismatch, BadDimension,
                               ValueMismatch, UnsupportedMatrixProperty,
                               NotSupportedError, OutOfBoundsError)
 from .base.matrix_data import MatrixData
+from .base.mtx_io import read_mtx, write_mtx, read_binary, write_binary
 from .base.linop import LinOp
+from .base.composition import (Composition, Combination, Perturbation,
+                               BlockOperator)
+from .matrix.dense import Dense
 from .matrix.csr import Csr
 from .matrix.coo import Coo
+from .matrix.ell import Ell
+from .matrix.sellp import Sellp
+from .matrix.hybrid import Hybrid
+from .matrix.fbcsr import Fbcsr
+from .matrix.sparsity_csr import SparsityCsr
 from .matrix.diagonal import Diagonal
 from .matrix.identity import Identity
+from .matrix.permutation import Permutation, ScaledPermutation, permute_mode
+from .matrix.row_gatherer import RowGatherer
+from .matrix.fft import Fft, Fft2, Fft3, FftNd
 from .device import resolve_device
 
 __version__ = "0.1.0"

@@ -9,7 +9,11 @@ instead of mutating ``x``.
 
 from __future__ import annotations
 
+import copy
+
 import torch
+
+from ..device import resolve_device
 
 
 class LinOp:
@@ -43,7 +47,83 @@ class LinOp:
         return alpha * self._apply(b) + beta * x
 
     def __matmul__(self, b):
+        if isinstance(b, LinOp):
+            from .composition import Composition
+            return Composition((self, b))
         return self.apply(b)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The value type: that of the first floating or complex tensor
+        the operator holds (float32 when it holds none)."""
+        for leaf in tensor_leaves(self):
+            if leaf.is_floating_point() or leaf.is_complex():
+                return leaf.dtype
+        return torch.float32
+
+    @property
+    def device(self) -> torch.device:
+        """The device of the first tensor the operator holds; one that
+        holds none (``Identity``) is on the entry points' default device,
+        the card (``device.resolve_device``)."""
+        for leaf in tensor_leaves(self):
+            return leaf.device
+        return resolve_device(None)
+
+    def to_dense(self):
+        """Materialise as a dense (n, m) tensor by applying to identity —
+        the generic fallback; formats override with direct scatters."""
+        n, m = self.shape
+        return self._apply(torch.eye(m, dtype=self.dtype,
+                                     device=self.device))
+
+
+def _children(obj):
+    if isinstance(obj, LinOp):
+        return list(vars(obj).values())
+    if isinstance(obj, dict):
+        return list(obj.values())
+    if isinstance(obj, (tuple, list)):
+        return list(obj)
+    return []
+
+
+def tensor_leaves(obj):
+    """The tensors an operator holds, depth first in attribute order
+    (through nested operators, tuples, lists and dicts)."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+        return
+    for child in _children(obj):
+        yield from tensor_leaves(child)
+
+
+def map_tensors(obj, fn):
+    """A copy of ``obj`` with ``fn`` applied to every tensor it holds;
+    operators are copied shallowly, nothing is modified in place."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, LinOp):
+        new = copy.copy(obj)
+        for name, value in vars(obj).items():
+            setattr(new, name, map_tensors(value, fn))
+        return new
+    if isinstance(obj, dict):
+        return {key: map_tensors(value, fn) for key, value in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(map_tensors(value, fn) for value in obj)
+    return obj
+
+
+def absolute_of_storage(op):
+    """|A| entrywise for a *storage* format (AbsoluteComputable mixin): abs
+    over every floating or complex tensor; index/pattern tensors pass
+    through.  Only valid when the operator's value tensors ARE its entries
+    — storage formats opt in by defining ``compute_absolute`` in terms of
+    this helper; composite/solver operators deliberately do not
+    (|A·B| != |A|·|B|)."""
+    return map_tensors(op, lambda x: torch.abs(x)
+                       if x.is_floating_point() or x.is_complex() else x)
 
 
 def _log_hook(op, phase: str) -> bool:

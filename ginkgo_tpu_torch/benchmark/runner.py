@@ -1,6 +1,6 @@
 """Benchmark test cases (``ginkgo_tpu/benchmark/runner.py`` in torch).
 
-Only ``build_matrix_data`` is ported so far, with its generated cases: the
+Only ``build_matrix_data`` is ported so far: Matrix Market files, the
 stencils and the unstructured FEM class.  The generator code is the JAX
 package's, so the same case and seed give the same matrix.
 """
@@ -10,23 +10,23 @@ from __future__ import annotations
 import numpy as np
 
 from ..base.matrix_data import MatrixData
+from ..base.mtx_io import read_mtx
 from ..utils.generators import stencil_2d, stencil_3d
 
 
 def build_matrix_data(case: dict) -> MatrixData:
-    """Test case -> MatrixData: {'stencil': '5pt|9pt|7pt|27pt', 'size':
-    edge} or {'fem': n[, 'spread': 600, 'per_row': 18, 'offscale': 0.1,
-    'sym': bool, 'seed': 5]} — the generated unstructured FEM class
-    (random column offsets with mesh locality, diagonally dominant
-    values).  MatrixMarket files and RCM reordering are later slices."""
-    if "filename" in case:
-        raise NotImplementedError(
-            "MatrixMarket test cases need base/mtx_io.py, which a later "
-            "slice of the port brings (ROADMAP.md, queue 1 item 6: mtx_io)")
+    """Test case -> MatrixData: {'filename': ...} (MatrixMarket),
+    {'stencil': '5pt|9pt|7pt|27pt', 'size': edge} or {'fem': n[, 'spread':
+    600, 'per_row': 18, 'offscale': 0.1, 'sym': bool, 'seed': 5]} — the
+    generated unstructured FEM class (random column offsets with mesh
+    locality, diagonally dominant values).  RCM reordering is a later
+    slice."""
     if case.get("rcm"):
         raise NotImplementedError(
             "'rcm' test cases need the reorderings, which a later slice of "
             "the port brings (ROADMAP.md, queue 1 item 8: reorder)")
+    if "filename" in case:
+        return read_mtx(case["filename"]).canonical()
     if "fem" in case:
         n = int(case["fem"])
         spread = int(case.get("spread", 600))

@@ -19,17 +19,23 @@ Strategies here:
   - ``automatical``: ``banded`` when the band census fits, else ``packed``
     when its padding stays economical, else ``classical``.
 
-``transpose``/``conj_transpose`` run on the matrix's device (BiCG needs
-them); spgemm and the format conversions are not ported yet.
+``transpose``/``conj_transpose``, ``to_dense``, the elementwise maps
+(``scale``, ``inv_scale``, ``compute_absolute``, ``astype``) and a
+classical ``add_scaled_identity`` run on the matrix's device; the format
+conversions, permutations and submatrices go through ``MatrixData`` on
+the host and plan again, as in the JAX package.  ``spgemm``/``spgeam``
+are not ported yet (they raise).
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
 
 from ..base.dtypes import as_torch_dtype
-from ..base.linop import LinOp
+from ..base.linop import LinOp, map_tensors
 from ..base.matrix_data import MatrixData
 from ..device import resolve_device
 from ..ops.registry import lookup
@@ -57,6 +63,31 @@ def fast_spmv_apply(op, b):
     return y
 
 
+def set_packed(op, pell_meta, slab, device):
+    """Give ``op`` (a ``Csr`` or an ``SpmvPlan``) its packed layout: the
+    compact stream the kernel reads, built on ``device`` (``sell``,
+    ``sell_meta``; None without a slab), and the slab itself on the host
+    (``pell_vals (Gs, 8*Wv, 8, 128)``, ``pell_idx`` int16 of the same
+    shape, ``pell_qw (Gs*8*Wv,)`` and ``pell_xbase (Gs,)`` int32)."""
+    op.sell = op.sell_meta = None   # sv, sc, sp, xbase
+    if slab[0] is not None:
+        op.sell, op.sell_meta = sell_from_packed(
+            *(t.to(device) for t in slab), pell_meta)
+        slab = tuple(t.cpu() for t in slab)
+    op.pell_meta = pell_meta
+    op.pell_vals, op.pell_idx, op.pell_qw, op.pell_xbase = slab
+
+
+def host_value_types(data_dtype, dtype=None):
+    """(torch value type, numpy type the host plans in) for values of
+    numpy type ``data_dtype`` stored as ``dtype`` (default: their own).
+    bf16 is planned in f32 (numpy has no bf16) and rounded on upload."""
+    vdtype = as_torch_dtype(data_dtype if dtype is None else dtype)
+    host = (np.dtype(np.float32) if vdtype == torch.bfloat16
+            else torch.empty(0, dtype=vdtype).numpy().dtype)
+    return vdtype, host
+
+
 def _upload(arr, device, dtype: torch.dtype):
     """numpy array -> tensor of ``dtype`` on ``device`` (converted on the
     host where numpy has the type, so only the final bytes cross)."""
@@ -66,6 +97,13 @@ def _upload(arr, device, dtype: torch.dtype):
                          copy=False)
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device,
                                                           dtype=dtype)
+
+
+def _scalar_on(alpha, t):
+    """``alpha`` where it can meet ``t``: a tensor scalar moves to ``t``'s
+    device (the packed slab stays on the host while ``alpha`` may live
+    on the card); a Python number passes through."""
+    return alpha.to(t.device) if isinstance(alpha, torch.Tensor) else alpha
 
 
 def aux_device_kw(n, value_dtype, index_dtype, tail, pell, device):
@@ -123,17 +161,8 @@ class Csr(LinOp):
         # packed-slot windowed-ELL aux: the planned slab, kept on the host
         # (no path reads it on the card), and its compact stream, built
         # here on the operator's device: the one array set the SpMV reads
-        slab = (pell_vals, pell_idx, pell_qw, pell_xbase)
-        self.sell = self.sell_meta = None   # sv, sc, sp, xbase
-        if pell_vals is not None:
-            self.sell, self.sell_meta = sell_from_packed(
-                *(t.to(values.device) for t in slab), pell_meta)
-            slab = tuple(t.cpu() for t in slab)
-        self.pell_meta = pell_meta
-        self.pell_vals = slab[0]        # (Gs, 8*Wv, 8, 128)
-        self.pell_idx = slab[1]         # int16, same shape
-        self.pell_qw = slab[2]          # (Gs*8*Wv,) int32
-        self.pell_xbase = slab[3]       # (Gs,) int32
+        set_packed(self, pell_meta, (pell_vals, pell_idx, pell_qw,
+                                     pell_xbase), values.device)
 
     @property
     def device(self) -> torch.device:
@@ -176,9 +205,7 @@ class Csr(LinOp):
         device = resolve_device(device)
         n, m = d.shape
         nnz = d.nnz
-        vdtype = as_torch_dtype(d.values.dtype if dtype is None else dtype)
-        host_dtype = (np.float32 if vdtype == torch.bfloat16
-                      else torch.empty(0, dtype=vdtype).numpy().dtype)
+        vdtype, host_dtype = host_value_types(d.values.dtype, dtype)
         values_np = d.values.astype(host_dtype, copy=False)
 
         (strategy, diag_offsets, band_meta, diag_values,
@@ -202,7 +229,17 @@ class Csr(LinOp):
                    diag_values=None if diag_values is None
                    else _upload(diag_values, device, vdtype), **aux_kw)
 
+    @classmethod
+    def from_dense(cls, dense, **kwargs):
+        if isinstance(dense, torch.Tensor):
+            dense = _values_numpy(dense)
+        return cls.from_data(MatrixData.from_dense(np.asarray(dense)),
+                             **kwargs)
+
     # -- conversions ---------------------------------------------------------------
+    def to_dense(self):
+        return self.to_coo().to_dense()
+
     def to_coo(self):
         return Coo(row_idx=self.row_idx, col_idx=self.col_idx,
                    values=self.values, shape=self.shape, nnz=self.nnz)
@@ -212,6 +249,35 @@ class Csr(LinOp):
         return MatrixData(self.shape, self.row_idx[:k].cpu().numpy(),
                           self.col_idx[:k].cpu().numpy(),
                           _values_numpy(self.values[:k]))
+
+    def _rebuild_kw(self, kw):
+        """A host rebuild lands on this matrix's device in its value type
+        unless the caller says otherwise."""
+        kw.setdefault("device", self.device)
+        kw.setdefault("dtype", self.dtype)
+        return kw
+
+    def to_ell(self, **kw):
+        from .ell import Ell
+        return Ell.from_data(self.to_matrix_data(), **self._rebuild_kw(kw))
+
+    def to_sellp(self, **kw):
+        from .sellp import Sellp
+        return Sellp.from_data(self.to_matrix_data(), **self._rebuild_kw(kw))
+
+    def to_hybrid(self, **kw):
+        from .hybrid import Hybrid
+        return Hybrid.from_data(self.to_matrix_data(),
+                                **self._rebuild_kw(kw))
+
+    def to_fbcsr(self, **kw):
+        from .fbcsr import Fbcsr
+        return Fbcsr.from_data(self.to_matrix_data(), **self._rebuild_kw(kw))
+
+    def to_sparsity_csr(self, **kw):
+        from .sparsity_csr import SparsityCsr
+        kw.setdefault("device", self.device)
+        return SparsityCsr.from_data(self.to_matrix_data(), **kw)
 
     def extract_diagonal(self):
         return self.to_coo().extract_diagonal()
@@ -286,6 +352,141 @@ class Csr(LinOp):
                       tail_cols=torch.where(pad, 0, self.tail_rows),
                       tail_vals=tv.conj_physical() if conj else tv)
         return kw
+
+    # -- elementwise maps (every value-carrying array stays consistent) ------
+    def _map_values(self, fn):
+        """Apply an elementwise map to every value-carrying tensor: the
+        classical values, the banded diagonals, the tail, the packed slab
+        on the host and its stream on the device (the floating and complex
+        tensors the operator holds)."""
+        return map_tensors(self, lambda t: fn(t) if t.is_floating_point()
+                           or t.is_complex() else t)
+
+    def scale(self, alpha):
+        return self._map_values(lambda v: v * _scalar_on(alpha, v))
+
+    def inv_scale(self, alpha):
+        """values / alpha (``csr.hpp:1356`` inv_scale)."""
+        return self._map_values(lambda v: v / _scalar_on(alpha, v))
+
+    def compute_absolute(self):
+        """|A| entrywise (AbsoluteComputable, ``csr.hpp:1192``)."""
+        return self._map_values(torch.abs)
+
+    def astype(self, dtype):
+        dtype = as_torch_dtype(dtype)
+        return self._map_values(lambda v: v.to(dtype))
+
+    def add_scaled_identity(self, alpha, beta):
+        """``beta*A + alpha*I`` on the existing pattern (ScaledIdentityAddable,
+        ``core/matrix/csr.cpp:1576-1589``).  Like the reference, requires every
+        diagonal entry to be structurally present (raises otherwise), and the
+        structural pattern is preserved even where the new value is exactly
+        zero.  A banded or packed matrix is rebuilt on the host (its layout
+        is planned from the values); a classical one is updated on its
+        device."""
+        rows = self.row_idx[:self.nnz]
+        cols = self.col_idx[:self.nnz]
+        if int((rows == cols).sum()) < min(self.shape):
+            from ..base.exceptions import UnsupportedMatrixProperty
+            raise UnsupportedMatrixProperty(
+                "add_scaled_identity: matrix has structurally zero "
+                "diagonal entries")
+        if self.strategy in ("banded", "packed"):
+            d = self.to_matrix_data()
+            new_vals = beta * d.values + np.where(
+                d.row_idx == d.col_idx, alpha, 0).astype(d.values.dtype)
+            # pattern-preserving rebuild (entries are already canonical
+            # row-major order; _from_canonical_data keeps exact zeros)
+            return Csr._from_canonical_data(
+                MatrixData(self.shape, d.row_idx, d.col_idx, new_vals),
+                strategy="automatical", dtype=self.dtype,
+                index_dtype=self.row_idx.dtype, device=self.device)
+        on_diag = self.row_idx == self.col_idx
+        new = copy.copy(self)
+        new.values = beta * self.values + torch.where(
+            on_diag, alpha, 0).to(self.values.dtype)
+        return new
+
+    # -- sparse algebra ------------------------------------------------------------
+    def spgemm(self, other, **kwargs):
+        """C = self @ other (``csr.cpp`` spgemm): not ported yet."""
+        raise NotImplementedError(
+            "Csr.spgemm needs ops/spgemm.py, which a later slice of the port "
+            "brings (ROADMAP.md, queue 1 item 8: sparse algebra)")
+
+    def spgeam(self, alpha, beta, other, **kwargs):
+        """C = alpha*self + beta*other: not ported yet."""
+        raise NotImplementedError(
+            "Csr.spgeam needs ops/spgemm.py, which a later slice of the port "
+            "brings (ROADMAP.md, queue 1 item 8: sparse algebra)")
+
+    # -- host rebuilds ---------------------------------------------------------------
+    def permute(self, perm, mode=None, **kwargs):
+        """Symmetric (or mode-selected) permutation (csr.hpp Permutable)."""
+        from .permutation import permute_data, permute_mode
+        if mode is None:
+            mode = permute_mode.symmetric
+        if isinstance(perm, torch.Tensor):
+            perm = perm.cpu().numpy()
+        return Csr.from_data(permute_data(self.to_matrix_data(),
+                                          np.asarray(perm), mode),
+                             **self._rebuild_kw(kwargs))
+
+    def scale_permute(self, row_sp, mode=None, col_sp=None,
+                      invert: bool = False, **kwargs):
+        """Scaled permutation (``csr.hpp`` scale_permute): one
+        ScaledPermutation + permute_mode, or row/col pair with ``invert``.
+        Host-side (build-time), like permute."""
+        from .permutation import scale_permute_data
+        return Csr.from_data(
+            scale_permute_data(self.to_matrix_data(), row_sp, mode=mode,
+                               col_sp=col_sp, invert=invert),
+            **self._rebuild_kw(kwargs))
+
+    def create_submatrix(self, rows: slice, cols: slice, **kwargs):
+        """Extract the [rows, cols] block (csr.cpp submatrix kernels)."""
+        d = self.to_matrix_data()
+        r0 = rows.start or 0
+        r1 = self.shape[0] if rows.stop is None else rows.stop
+        c0 = cols.start or 0
+        c1 = self.shape[1] if cols.stop is None else cols.stop
+        keep = ((d.row_idx >= r0) & (d.row_idx < r1)
+                & (d.col_idx >= c0) & (d.col_idx < c1))
+        sub = MatrixData((r1 - r0, c1 - c0), d.row_idx[keep] - r0,
+                         d.col_idx[keep] - c0, d.values[keep])
+        return Csr.from_data(sub, **self._rebuild_kw(kwargs))
+
+    def is_sorted_by_column_index(self) -> bool:
+        """Host-side check that every row's columns are ascending
+        (``csr.hpp:1207``).  Always true for matrices built through
+        MatrixData.canonical(); useful for externally assembled arrays."""
+        rows = self.row_idx[:self.nnz].cpu().numpy()
+        cols = self.col_idx[:self.nnz].cpu().numpy()
+        order = np.lexsort((cols, rows))
+        return bool(np.array_equal(order, np.arange(self.nnz))
+                    and np.array_equal(rows, np.sort(rows)))
+
+    def sort_by_column_index(self):
+        """Return a copy with each row's entries sorted by column index
+        (``csr.hpp:1199``; build-time, host side).  A pure reorder like the
+        reference: explicit zeros and duplicate coordinates are preserved,
+        not canonicalized away."""
+        if self.is_sorted_by_column_index():
+            return self
+        rows = self.row_idx.cpu().numpy()
+        cols = self.col_idx.cpu().numpy()
+        # padded slots carry row == n, so lexsort keeps them at the end
+        order = torch.from_numpy(np.lexsort((cols, rows))).to(self.device)
+        new = copy.copy(self)
+        new.row_idx = self.row_idx[order]
+        new.col_idx = self.col_idx[order]
+        new.values = self.values[order]
+        return new
+
+    # row lengths (for strategy decisions / ELL conversion)
+    def row_lengths(self):
+        return self.row_ptr[1:] - self.row_ptr[:-1]
 
 
 def _values_numpy(values) -> np.ndarray:

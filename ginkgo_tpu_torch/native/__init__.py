@@ -7,8 +7,8 @@ file.  ``lib()`` returns the loaded library or None when no toolchain is
 available: callers treat it as an accelerator, never a requirement, and
 their numpy fallbacks give the same result.
 
-Only the entry points the ported modules call are bound: dependency levels
-(triangular solves), ILU pair lists (ParILU), exact ILU(0)/IC(0), the COO
+Only the entry points the ported modules call are bound: the Matrix
+Market reader (``base/mtx_io.py``), dependency levels (triangular solves), ILU pair lists (ParILU), exact ILU(0)/IC(0), the COO
 canonicalizer (``MatrixData.sum_duplicates``), and for ParILUT/ParICT the
 row-major pair emitters, the packed pair-contraction planner, the fused
 candidate passes and the Gauss-Seidel sweeps.
@@ -59,7 +59,15 @@ def _build() -> bool:
 
 def _bind(lib):
     i64p = ctypes.POINTER(ctypes.c_int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
     f64p = ctypes.POINTER(ctypes.c_double)
+    lib.gt_mtx_header.restype = ctypes.c_int
+    lib.gt_mtx_header.argtypes = [ctypes.c_char_p, i64p, i64p, i64p, i32p,
+                                  i32p, i32p, i32p]
+    lib.gt_mtx_read_coord.restype = ctypes.c_int
+    lib.gt_mtx_read_coord.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                      ctypes.c_int32, ctypes.c_int32,
+                                      i64p, i64p, f64p]
     lib.gt_compute_levels.restype = ctypes.c_int
     lib.gt_compute_levels.argtypes = [ctypes.c_int64, i64p, i64p,
                                       ctypes.c_int32, i64p]
@@ -79,7 +87,6 @@ def _bind(lib):
     lib.gt_ic0.restype = ctypes.c_int
     lib.gt_ic0.argtypes = [ctypes.c_int64, i64p, i64p, f64p,
                            ctypes.c_int32]
-    i32p = ctypes.POINTER(ctypes.c_int32)
     i16p = ctypes.POINTER(ctypes.c_int16)
     lib.gt_ilut_pairs_rowmajor_count.restype = ctypes.c_int64
     lib.gt_ilut_pairs_rowmajor_count.argtypes = [
@@ -156,6 +163,49 @@ def lib():
 
 def _ptr(a, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def read_mtx_native(path: str):
+    """(shape, rows, cols, vals, symmetry) of a coordinate Matrix Market
+    file, or None (no library, no such file, or the ``array`` format:
+    the caller reads those in Python)."""
+    L = lib()
+    if L is None or not os.path.exists(path):
+        return None
+    nr = ctypes.c_int64()
+    nc = ctypes.c_int64()
+    nnz = ctypes.c_int64()
+    cpx = ctypes.c_int32()
+    pat = ctypes.c_int32()
+    sym = ctypes.c_int32()
+    coord = ctypes.c_int32()
+    rc = L.gt_mtx_header(path.encode(), ctypes.byref(nr), ctypes.byref(nc),
+                         ctypes.byref(nnz), ctypes.byref(cpx),
+                         ctypes.byref(pat), ctypes.byref(sym),
+                         ctypes.byref(coord))
+    if rc != 0:
+        raise ValueError(f"invalid MatrixMarket header in {path!r} "
+                         f"(native rc={rc})")
+    if not coord.value:
+        return None   # array format -> python path
+    n = nnz.value
+    rows = np.empty(n, np.int64)
+    cols = np.empty(n, np.int64)
+    vals = np.empty(2 * n if cpx.value else n, np.float64)
+    rc = L.gt_mtx_read_coord(path.encode(), n, cpx.value, pat.value,
+                             _ptr(rows, ctypes.c_int64),
+                             _ptr(cols, ctypes.c_int64),
+                             _ptr(vals, ctypes.c_double))
+    if rc != 0:
+        reason = {-6: "truncated body", -7: "malformed entry line",
+                  -8: "index outside declared dimensions"}.get(
+            rc, f"native rc={rc}")
+        raise ValueError(f"invalid MatrixMarket body in {path!r}: {reason}")
+    if cpx.value:
+        vals = vals.view(np.complex128)
+    return ((nr.value, nc.value), rows, cols, vals,
+            {0: "general", 1: "symmetric", 2: "hermitian",
+             3: "skew-symmetric"}[sym.value])
 
 
 def compute_levels_native(n, ptr, cols, lower: bool):

@@ -869,3 +869,74 @@ def test_gmres_on_card_matches_host(dev, storage):
     assert torch.equal(rg.converged.cpu(), rc.converged)
     assert torch.equal(rg.stagnated.cpu(), rc.stagnated)
     torch.testing.assert_close(rg.x.cpu(), rc.x, rtol=1e-10, atol=1e-10)
+
+
+FORMAT_NAMES = ["Coo", "Ell", "Sellp", "Hybrid", "Fbcsr"]
+
+
+@pytest.mark.parametrize("vdtype", [np.float32, np.complex64],
+                         ids=["f32", "c64"])
+@pytest.mark.parametrize("kind", ["banded", "packed"])
+@pytest.mark.parametrize("fmt", FORMAT_NAMES)
+def test_format_plans_apply_as_csr_bit_for_bit(dev, fmt, kind, vdtype):
+    """Each format's SpmvPlan carries the planned Csr's arrays, so its
+    apply on the card launches the same kernel once and gives the Csr's
+    y bit for bit."""
+    base = (stencil_3d(12, points=27) if kind == "banded"
+            else permute_locally(stencil_3d(16, 16, 8, points=27)))
+    scale = 1 + 0.25j if vdtype == np.complex64 else 1
+    d = gtt.MatrixData(base.shape, base.row_idx, base.col_idx,
+                       (base.values * scale).astype(vdtype))
+    A = gtt.Csr.from_data(d, device=dev)
+    F = getattr(gtt, fmt).from_data(d, device=dev)
+    assert A.strategy == F.fast_op.strategy == kind
+    counter = {("banded", np.float32): spmv_banded.dia_spmv_cuda,
+               ("banded", np.complex64): spmv_banded.dia_spmv_complex_cuda,
+               ("packed", np.float32): spmv_packed.pell_spmv_cuda,
+               ("packed", np.complex64): spmv_packed.pell_spmv_complex_cuda
+               }[(kind, vdtype)]
+    x = torch.randn((d.shape[0], 3), device=dev,
+                    dtype=torch.complex64 if vdtype == np.complex64
+                    else torch.float32)
+    before = counter.launches
+    y = F.apply(x)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert torch.equal(y, A.apply(x))
+
+
+@pytest.mark.parametrize("how", ["scale", "inv_scale", "astype"])
+@pytest.mark.parametrize("kind", ["banded", "packed"])
+def test_csr_value_maps_on_card_match_cpu(dev, kind, how):
+    """scale / inv_scale by a scalar tensor on the card and astype map the
+    host slab, the card stream and the device arrays alike: each value
+    tensor equals the CPU run's bit for bit, and the kernel's apply
+    equals that of a Csr planned on the card from the mapped entries."""
+    base = (stencil_3d(12, points=27) if kind == "banded"
+            else permute_locally(stencil_3d(16, 16, 8, points=27)))
+    maps = {"scale": lambda A, dv: A.scale(torch.tensor(1.7, device=dv)),
+            "inv_scale": lambda A, dv: A.inv_scale(
+                torch.tensor(1.7, dtype=torch.float64, device=dv)),
+            "astype": lambda A, dv: A.astype(torch.float32)}
+    got, want = (maps[how](gtt.Csr.from_data(base, device=device), device)
+                 for device in (dev, torch.device("cpu")))
+    assert got.strategy == want.strategy == kind
+    for name in ("values", "diag_values", "tail_vals", "pell_vals"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert torch.equal(g.cpu(), w), name
+    if kind == "packed":
+        assert got.pell_vals.device.type == "cpu"
+        assert got.sell["sv"].device.type == "cuda"
+        assert torch.equal(got.sell["sv"].cpu(), want.sell["sv"])
+    ref = gtt.Csr.from_data(want.to_matrix_data(), dtype=got.dtype,
+                            device=dev)
+    x = torch.randn((base.shape[0], 2), device=dev, dtype=got.dtype)
+    assert torch.equal(got.apply(x), ref.apply(x))
+
+
+def test_tensorless_operator_to_dense_lands_on_the_card(dev):
+    eye = gtt.Identity(5).to_dense()
+    assert eye.device.type == "cuda"
+    assert torch.equal(eye.cpu(), torch.eye(5))

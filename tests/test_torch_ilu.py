@@ -25,6 +25,7 @@ from ginkgo_tpu.stop.criterion import Iteration as JIteration
 from ginkgo_tpu.stop.criterion import ResidualNorm as JResidualNorm
 from ginkgo_tpu_torch import native
 from ginkgo_tpu_torch.base.composition import Composition
+from ginkgo_tpu_torch.base.mtx_io import write_mtx
 from ginkgo_tpu_torch.benchmark import build_matrix_data
 from ginkgo_tpu_torch.factorization import Ic0, Ilu0, ParIc, ParIlu
 from ginkgo_tpu_torch.interop import factorization_from_arrays
@@ -68,16 +69,17 @@ def _assert_factor_equal(port_op, jax_op, rtol):
                                atol=rtol * np.abs(b.values).max())
 
 
-def test_generator_matches_jax():
+def test_generator_matches_jax(tmp_path):
+    path = str(tmp_path / "fem.mtx")
+    write_mtx(path, build_matrix_data({"fem": 500, "offscale": 1.2}))
     for case in ({"fem": 2048, "offscale": 1.2},
                  {"fem": 1000, "sym": True},
-                 {"stencil": "7pt", "size": 6}):
+                 {"stencil": "7pt", "size": 6},
+                 {"filename": path}):
         d, dj = build_matrix_data(case), jbuild(case)
         assert d.shape == dj.shape
         for name in ("row_idx", "col_idx", "values"):
             assert np.array_equal(getattr(d, name), getattr(dj, name))
-    with pytest.raises(NotImplementedError, match="mtx_io"):
-        build_matrix_data({"filename": "a.mtx"})
     with pytest.raises(NotImplementedError, match="reorder"):
         build_matrix_data({"fem": 100, "rcm": True})
 

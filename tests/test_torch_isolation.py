@@ -24,7 +24,17 @@ def test_import_loads_no_jax():
     code = ("import sys; import ginkgo_tpu_torch, ginkgo_tpu_torch.solver, "
             "ginkgo_tpu_torch.preconditioner, ginkgo_tpu_torch.interop, "
             "ginkgo_tpu_torch.ops._cuda, ginkgo_tpu_torch.factorization, "
-            "ginkgo_tpu_torch.native, ginkgo_tpu_torch.benchmark; "
+            "ginkgo_tpu_torch.native, ginkgo_tpu_torch.benchmark, "
+            "ginkgo_tpu_torch.base.mtx_io, ginkgo_tpu_torch.matrix.ell, "
+            "ginkgo_tpu_torch.matrix.hybrid, ginkgo_tpu_torch.matrix.sellp, "
+            "ginkgo_tpu_torch.matrix.fbcsr, ginkgo_tpu_torch.matrix.fft, "
+            "ginkgo_tpu_torch.matrix.sparsity_csr, "
+            "ginkgo_tpu_torch.matrix.fastpath, "
+            "ginkgo_tpu_torch.matrix.permutation, "
+            "ginkgo_tpu_torch.matrix.row_gatherer, "
+            "ginkgo_tpu_torch.matrix.csr_lookup, "
+            "ginkgo_tpu_torch.matrix.dense, "
+            "ginkgo_tpu_torch.base.composition; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ginkgo_tpu' "
             "or m.startswith('ginkgo_tpu.')]; print(bad); "
