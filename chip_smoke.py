@@ -101,15 +101,19 @@ exits non-zero:
 18c. small f64 runs on the card agree with the port's CPU run: DIA
    ParILUT and ParICT factors at nx = 8, block-Jacobi CG (block size 4,
    adaptive, natural blocks);
-18d. main path, the format zoo on kernel A: ``Coo``, ``Ell``, ``Sellp``,
-   ``Hybrid`` (``automatic``, 0.8) and ``Fbcsr(4)`` of the nx=160 stencil
-   (f32) must plan ``banded``;
+18d. main path, the format zoo on kernel A: ``Ell`` and ``Hybrid``
+   (``automatic``, 0.8) of the nx=160 stencil and ``Coo``, ``Sellp`` and
+   ``Fbcsr(4)`` of the nx=100 one (f32; ``CUT_FORMATS``) must plan
+   ``banded``;
    each applies at k = 1 and 3 against the plain COO product in f64 on
    the card, one kernel-A launch an apply, timed beside the ``Csr``'s
    apply, with its ``from_data`` seconds and card bytes; Jacobi-CG with
    the ``Ell`` operator takes phase 6's iterations and x bit for bit;
-   ``SparsityCsr`` of the pattern applied to ones is value x its row
-   sums;
+   ``SparsityCsr`` of the nx=100 pattern applied to ones is value x its
+   row sums; then ``diagonal``: the five ``Diagonal`` methods the port
+   gained (``rapply``, ``compute_absolute``, ``conj_transpose``,
+   ``transpose``, ``from_data``) on the nx=160 system's
+   ``Coo.extract_diagonal`` against their plain torch formulas;
 18e. Matrix Market and binary I/O: the ILU system's FEM matrix written
    with ``write_mtx`` and read back on the native path and through
    ``build_matrix_data({"filename": ...})``, and through ``write_binary``/
@@ -127,6 +131,31 @@ exits non-zero:
    packed (the complex ones on the complex instantiations of A and B),
    on the card against the port's CPU run: applies to 1e-12,
    ``to_matrix_data`` and the conversions exactly;
+18h. main path, ISAI and SOR on the ILU system (f32, BiCGSTAB to
+   ``ResidualNorm(1e-5)``, beside the bare solve's and ILU's iterations):
+   ``Isai()`` takes the packed fill and M plans ``packed`` (kernel B; a
+   second generate on the cached symbolics timed too); ``GaussSeidel()``
+   and ``Sor(1.2, symmetric=True)`` with the trisolve algorithm ``auto``
+   chose for each factor and why when it is not ``exact_packed`` (kernel
+   C); each with its stagetimer split, ms per iteration, launches and
+   the true residual; then ``rcm_case``: the ILU case with ``rcm``, the
+   layout the planner chose and one SpMV beside the unreordered one's;
+18i. main path, ISAI(spd) on the DIA system (after 18b):
+   ``Isai(mode="spd")``-CG to ``DIA_TOL``: IC(0), the DIA block fill,
+   both inverse factors ``banded`` (three kernel-A launches an
+   iteration), its apply timed, scalar-Jacobi CG's iterations beside;
+18j. the direct solvers: nested-dissection ``ScaledReordered`` around
+   ``Direct(Lu())`` and ``Direct(Cholesky())`` on ``stencil_2d(256)``
+   (n = 65,536, f64, b = ones): ordering and host factorization seconds,
+   L and U entries, the trisolve algorithm and levels, ms per solve, the
+   true residual under ``DIRECT_TOL``;
+18k. ``Csr.spgemm`` of the nx=64 7- and 27-point stencils with
+   themselves: the device numeric and the host streaming merge, each
+   against the native host product (same pattern, values to
+   ``SPGEMM_TOL``);
+18l. small f64 runs on the card agree with the port's CPU run: ISAI in
+   four modes, SSOR, Gauss-Seidel, ``Direct``, MC64-``ScaledReordered``
+   and the device SpGEMM numeric, on a stencil and a FEM matrix;
 19. the complex path at full width: ``Csr.from_data(..., dtype=
    np.complex64)`` of A = P (1 + 0.02i) + 0.5i I (P the nx=160 stencil,
    ``banded`` layout), of the Hermitian H = P + 1.02 I + 0.02i (U - U^T)
@@ -181,19 +210,22 @@ import ginkgo_tpu_torch as gtt
 from ginkgo_tpu_torch import native
 from ginkgo_tpu_torch.base.linop import tensor_leaves
 from ginkgo_tpu_torch.benchmark import build_matrix_data
-from ginkgo_tpu_torch.factorization import (ParIct, ParIlu, ParIlut,
-                                            par_ilut_packed)
+from ginkgo_tpu_torch.factorization import (Cholesky, Lu, ParIct, ParIlu,
+                                            ParIlut, par_ilut_packed)
 from ginkgo_tpu_torch.ops import (_cuda, pair_contract, registry,
-                                  row_write, spmv_banded, spmv_packed,
-                                  spmv_sell, tri_packed)
+                                  row_write, spgemm, spmv_banded,
+                                  spmv_packed, spmv_sell, tri_packed)
 from ginkgo_tpu_torch.ops.attic import spmv_chunked, spmv_windowed
 from ginkgo_tpu_torch.matrix.csr_lookup import CsrLookup
 from ginkgo_tpu_torch.matrix.permutation import permute_data
 from ginkgo_tpu_torch.ops.spmv import coo_spmv
-from ginkgo_tpu_torch.preconditioner import Ic, Ilu, Jacobi
+from ginkgo_tpu_torch.preconditioner import (GaussSeidel, Ic, Ilu, Isai,
+                                             Jacobi, Sor)
+from ginkgo_tpu_torch.preconditioner import isai as isai_mod
+from ginkgo_tpu_torch.reorder import Mc64, NestedDissection, ScaledReordered
 from ginkgo_tpu_torch.solver import (Bicg, Bicgstab, CbGmres, Cg, Cgs,
-                                     Chebyshev, Fcg, Gcr, Gmres, Idr, Ir,
-                                     Minres, PipeCg)
+                                     Chebyshev, Direct, Fcg, Gcr, Gmres,
+                                     Idr, Ir, Minres, PipeCg)
 from ginkgo_tpu_torch.solver import gmres as gmres_mod
 from ginkgo_tpu_torch.stop import Iteration, ResidualNorm
 from ginkgo_tpu_torch.ops.tri_inv import batched_lowtri_inverse
@@ -201,7 +233,8 @@ from ginkgo_tpu_torch.utils import stagetimer
 from ginkgo_tpu_torch.utils.generators import (permute_locally,
                                                random_banded,
                                                random_lower_factor,
-                                               stencil_3d, symmetric_part)
+                                               stencil_2d, stencil_3d,
+                                               symmetric_part)
 
 # H100 SXM data sheet: memory rate
 # and the non-tensor-core f32 rate the kernels' multiply-adds run at
@@ -300,8 +333,24 @@ FORMAT_BUILDS = {
         d, strategy=strategy, percent=0.8, **kw),
     "Fbcsr": lambda d, **kw: gtt.Fbcsr.from_data(d, block_size=4, **kw),
 }
+# the formats whose set-up the script cuts by building them at nx=100
+# (1,000,000 rows) instead of the banded system's 160; each still plans
+# ``banded`` and launches kernel A
+SMALL_FORMAT_NX = 100
+CUT_FORMATS = ("Coo", "Sellp", "Fbcsr", "SparsityCsr")
 # the packed solve's Hybrid (BiCGSTAB without a preconditioner)
 HYBRID_SOLVE_STRATEGY = "minimal_storage_limit"
+# the direct solvers: ND-ordered LU and Cholesky of the 2-D 5-point
+# stencil at n = 65,536, f64, b = ones, each solve's true residual under
+# DIRECT_TOL; DIRECT_SOLVES timed solves after the first
+DIRECT_NX = 256
+DIRECT_TOL = 1e-10
+DIRECT_SOLVES = 3
+# Csr.spgemm of the nx=64 7- and 27-point stencils with themselves (f32):
+# 12.5M contribution pairs take the device numeric, 181M the host merge;
+# each against the native host product, relative to max |value|
+SPGEMM_NX = 64
+SPGEMM_TOL = 1e-6
 LOOKUP_QUERIES = 1_000_000
 FFT_EDGE = BANDED_NX
 DEV = torch.device("cuda")
@@ -309,8 +358,16 @@ TOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 1e-5,
        torch.float16: 1e-5, torch.complex64: 1e-5, torch.complex128: 1e-12}
 
 
+# the host clock when the script started: every phase line carries its
+# wall seconds since then (``wall_s``), so a phase's cost is the
+# difference to the line before it
+START = time.perf_counter()
+
+
 def say(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase,
+                      "wall_s": time.perf_counter() - START, **fields}),
+          flush=True)
 
 
 def card_line() -> str:
@@ -2262,19 +2319,25 @@ def check_format(label, name, op, setup_s, strategy, kernel, ref):
                           plan_card_bytes=card_bytes(op.fast_op))
 
 
-def main_formats_banded(data, A, csr_iters, csr_x):
-    """Every format of the nx=160 stencil (``Hybrid``: ``automatic``,
-    ``percent=0.8``) through kernel A, then Jacobi-CG with the ``Ell`` operator (its
-    Jacobi from ``A``, the phase-6 ``Csr`` of the same data): the same
-    iterations and, the same arrays reaching the same kernel, the same x
-    bit for bit.  Then ``SparsityCsr`` of the pattern against value x the
+def main_formats_banded(data, A, csr_iters, csr_x, small_data, small_A):
+    """Every format of the stencil (``Hybrid``: ``automatic``,
+    ``percent=0.8``) through kernel A: ``Ell`` and ``Hybrid`` at nx=160,
+    the ``CUT_FORMATS`` at nx=100 (``small_data``, held against
+    ``small_A``); then Jacobi-CG with the ``Ell`` operator (its Jacobi
+    from ``A``, the phase-6 ``Csr`` of the same data): the same iterations
+    and, the same arrays reaching the same kernel, the same x bit for bit.
+    Then ``SparsityCsr`` of the nx=100 pattern against value x the
     pattern's row sums.  Returns the counted launches."""
     runs, report = [], {}
     for name in FORMAT_BUILDS:
-        op, setup_s = build_format(name, data)
+        src, ref = ((small_data, small_A) if name in CUT_FORMATS
+                    else (data, A))
+        op, setup_s = build_format(name, src)
         launches, report[name] = check_format(
             "main_formats_banded", name, op, setup_s, "banded", "dia_spmv",
-            A)
+            ref)
+        report[name]["nx"] = (SMALL_FORMAT_NX if name in CUT_FORMATS
+                              else BANDED_NX)
         runs.append(launches)
         if name == "Ell":
             E = op
@@ -2310,18 +2373,19 @@ def main_formats_banded(data, A, csr_iters, csr_x):
     del E, M, res
 
     t0 = time.perf_counter()
-    S = gtt.SparsityCsr.from_data(data, value=2.0)
+    S = gtt.SparsityCsr.from_data(small_data, value=2.0)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    ones = torch.ones((n, 1), dtype=torch.float32, device=DEV)
+    ones = torch.ones((small_A.shape[0], 1), dtype=torch.float32, device=DEV)
     y = S.apply(ones)
-    want = 2.0 * (A.row_ptr[1:] - A.row_ptr[:-1]).to(torch.float32)[:, None]
+    want = 2.0 * (small_A.row_ptr[1:] - small_A.row_ptr[:-1]).to(
+        torch.float32)[:, None]
     if not torch.equal(y, want):
         raise AssertionError("SparsityCsr: apply to ones is not value x the "
                              "pattern's row sums")
     ms = time_ms(lambda: S.apply(ones), 10)
-    say("sparsity_csr_banded", setup_s=setup_s, apply_ms=ms,
-        card_bytes=card_bytes(S), route="coo_spmv")
+    say("sparsity_csr_banded", nx=SMALL_FORMAT_NX, setup_s=setup_s,
+        apply_ms=ms, card_bytes=card_bytes(S), route="coo_spmv")
     return runs
 
 
@@ -2546,6 +2610,324 @@ def small_formats_match_cpu():
                                                        launches[kernel]})
 
 
+# -- sparse algebra, reorderings, direct solvers, ISAI and SOR ------------------
+def stage_split(st, total_s):
+    """A generate's seconds by stagetimer stage; host = the rest."""
+    transfer = st.stages.get("transfer", 0.0)
+    device = st.stages.get("device", 0.0)
+    return dict(seconds=total_s, host_s=total_s - transfer - device,
+                transfer_s=transfer, device_s=device)
+
+
+def timed_generate(factory, A):
+    """``factory.generate(A)`` under a stagetimer collector: (operator,
+    its seconds split by stage)."""
+    t0 = time.perf_counter()
+    with stagetimer.collect() as st:
+        M = factory.generate(A)
+        torch.cuda.synchronize()
+    return M, stage_split(st, time.perf_counter() - t0)
+
+
+def seen(launches):
+    """The kernels a counted window launched, by count."""
+    return {name: count for name, count in launches.items() if count}
+
+
+def main_isai_spd(A):
+    """``Isai(mode="spd")``-CG on the nx=64 27-point stencil (f32) to
+    ``DIA_TOL``: IC(0) on the card's host tier, the DIA block fill with an
+    (n, 14, 14) batched solve, both inverse factors planned ``banded``, so
+    an iteration is three kernel-A launches.  Scalar-Jacobi CG beside it.
+    Returns the counted launches."""
+    route = isai_mod.isai_route(A, 1, "lower")
+    M, setup = timed_generate(Isai(mode="spd"), A)
+    layouts = (M.linv.strategy, M.linv_h.strategy)
+    b = torch.ones(A.shape[0], dtype=torch.float32, device=DEV)
+    apply_ms = time_ms(lambda: M.apply(b), 50, queue_ahead=True)
+    res, seconds, launches, true_rel = counted_solve(A, Cg, M, DIA_TOL)
+    iters = int(res.iterations[0])
+    say("main_isai_spd", n=A.shape[0], nnz=A.nnz, strategy=A.strategy,
+        fill=route, inverse_layouts=layouts, linv_nnz=M.linv.nnz,
+        generate=setup, apply_ms=apply_ms, iterations=iters,
+        converged=bool(res.converged.all()),
+        stagnated=bool(res.stagnated.any()), solve_s=seconds,
+        ms_per_iteration=seconds * 1e3 / max(iters, 1),
+        true_rel_residual=true_rel, launches=seen(launches),
+        scalar_jacobi=bare_solve(A, Cg, DIA_TOL, Jacobi().generate(A)))
+    if route != "dia" or layouts != ("banded", "banded"):
+        raise AssertionError(f"ISAI(spd): fill {route}, inverse layouts "
+                             f"{layouts}, not dia and banded")
+    check_solve("ISAI(spd) CG", res, launches, true_rel, DIA_TOL,
+                ["dia_spmv"])
+    if launches["dia_spmv"] < 3 * iters:
+        raise AssertionError(f"ISAI(spd) CG: {launches['dia_spmv']} kernel-A"
+                             f" launches for {iters} iterations")
+    return launches
+
+
+def main_isai_general(A, bare_iters):
+    """``Isai()``-BiCGSTAB on the ILU system to ``ILU_TOL``: the packed
+    device fill (an (n, S, S) identity slab, one scatter, the batched
+    solve), M planned ``packed``, so kernel B.  A second generate reuses
+    the pattern's cached symbolics.  Returns the counted launches."""
+    route = isai_mod.isai_route(A)
+    isai_mod._ISAI_SYM_CACHE.clear()
+    M, setup = timed_generate(Isai(), A)
+    _, regenerate = timed_generate(Isai(), A)
+    res, seconds, launches, true_rel = counted_solve(A, Bicgstab, M, ILU_TOL,
+                                                     cap=1000)
+    iters = int(res.iterations[0])
+    b = torch.ones(A.shape[0], dtype=torch.float32, device=DEV)
+    say("main_isai_general", n=A.shape[0], nnz=A.nnz, strategy=A.strategy,
+        fill=route, inverse_layout=M.strategy, m_nnz=M.nnz,
+        generate=setup, regenerate=regenerate,
+        apply_ms=time_ms(lambda: M.apply(b), 50, queue_ahead=True),
+        iterations=iters, unpreconditioned_iterations=bare_iters,
+        converged=bool(res.converged.all()),
+        stagnated=bool(res.stagnated.any()), solve_s=seconds,
+        ms_per_iteration=seconds * 1e3 / max(iters, 1),
+        true_rel_residual=true_rel, launches=seen(launches))
+    if route != "packed" or M.strategy != "packed":
+        raise AssertionError(f"ISAI: fill {route}, layout {M.strategy}, "
+                             f"not packed and packed")
+    check_solve("ISAI BiCGSTAB", res, launches, true_rel, ILU_TOL,
+                ["pell_spmv"])
+    return launches
+
+
+def trisolve_route(op):
+    """The algorithm ``auto`` chose for a generated triangular solve, and
+    why when it is not the packed exact solve (kernel C)."""
+    why = None
+    if op.algorithm == "exact":
+        why = "a banded factor: the block-inverse solve"
+    elif op.algorithm != "exact_packed":
+        why = ("the packed exact solve takes f32 factors only"
+               if op.inv_diag.dtype != torch.float32 else
+               "the packed trisolve plan declined the factor")
+    return dict(algorithm=op.algorithm, why=why)
+
+
+def main_sor(A, bare_iters, ilu_iters):
+    """``GaussSeidel()`` and ``Sor(1.2, symmetric=True)`` as BiCGSTAB
+    preconditioners on the ILU system to ``ILU_TOL``: the factors have
+    ParILU's L and U patterns, so ``auto`` should plan both solves
+    ``exact_packed`` (kernel C); whatever it chose is printed with its
+    reason.  Returns the counted launches of both solves."""
+    runs = []
+    for label, factory in (("gauss_seidel", GaussSeidel()),
+                           ("ssor", Sor(relaxation_factor=1.2,
+                                        symmetric=True))):
+        M, setup = timed_generate(factory, A)
+        solves = [M] if label == "gauss_seidel" else [M.lower, M.upper]
+        routes = [trisolve_route(op) for op in solves]
+        res, seconds, launches, true_rel = counted_solve(
+            A, Bicgstab, M, ILU_TOL, cap=1000)
+        iters = int(res.iterations[0])
+        say(f"main_{label}", n=A.shape[0], trisolves=routes,
+            generate=setup, iterations=iters, ilu_iterations=ilu_iters,
+            unpreconditioned_iterations=bare_iters,
+            converged=bool(res.converged.all()),
+            stagnated=bool(res.stagnated.any()), solve_s=seconds,
+            ms_per_iteration=seconds * 1e3 / max(iters, 1),
+            true_rel_residual=true_rel, launches=seen(launches))
+        kernels = ["pell_spmv"] + ["tri_packed"] * any(
+            r["algorithm"] == "exact_packed" for r in routes)
+        check_solve(label, res, launches, true_rel, ILU_TOL, kernels)
+        runs.append(launches)
+        del M
+    return runs
+
+
+class Timed:
+    """A factory whose ``generate`` is timed (ends in a sync); keeps the
+    last result."""
+
+    def __init__(self, factory):
+        self.factory = factory
+        self.seconds = self.result = None
+
+    def generate(self, A):
+        t0 = time.perf_counter()
+        self.result = self.factory.generate(A)
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - t0
+        return self.result
+
+
+def main_direct(d):
+    """``ScaledReordered(Direct(Lu()), NestedDissection())`` and the same
+    with ``Cholesky()`` on the 2-D 5-point stencil (f64, b = ones): the
+    host factorization's seconds and fill, the trisolve algorithm the
+    factors get, ms per solve and the true residual.  Returns the counted
+    launches of the solves."""
+    A = gtt.Csr.from_data(d, dtype=np.float64)
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=DEV)
+    runs = []
+    for label, fact in (("lu", Lu()), ("cholesky", Cholesky())):
+        order, factor = Timed(NestedDissection()), Timed(fact)
+        t0 = time.perf_counter()
+        op = ScaledReordered(inner_operator=Direct(factorization=factor),
+                             reordering=order).generate(A)
+        torch.cuda.synchronize()
+        generate_s = time.perf_counter() - t0
+        F = factor.result
+        reset_counters()
+        t0 = time.perf_counter()
+        x = op.apply(b)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = read_counters()
+        true_rel = true_rel_residual(A, b, x)
+        t0 = time.perf_counter()
+        for _ in range(DIRECT_SOLVES):
+            op.apply(b)
+        torch.cuda.synchronize()
+        solve_ms = (time.perf_counter() - t0) * 1e3 / DIRECT_SOLVES
+        say(f"main_direct_{label}", n=A.shape[0], nnz=A.nnz,
+            ordering_s=order.seconds, factorization_s=factor.seconds,
+            generate_s=generate_s, l_nnz=F.l_factor.nnz,
+            u_nnz=F.u_factor.nnz,
+            trisolves=[trisolve_route(s) for s in (op.inner.l_solver,
+                                                   op.inner.u_solver)],
+            levels=[s.num_levels for s in (op.inner.l_solver,
+                                           op.inner.u_solver)],
+            first_solve_s=first_s, ms_per_solve=solve_ms,
+            true_rel_residual=true_rel, launches=seen(launches))
+        if not (np.isfinite(true_rel) and true_rel <= DIRECT_TOL):
+            raise AssertionError(f"Direct({label}): true relative residual "
+                                 f"{true_rel:.3e} > {DIRECT_TOL}")
+        runs.append(launches)
+        del op, F
+    return runs
+
+
+def phase_spgemm():
+    """``Csr.spgemm`` of the 7- and 27-point stencils at nx=64 (f32) with
+    themselves: ``auto`` takes the device numeric for the first (12.5M
+    contribution pairs) and the host streaming merge for the second; each
+    product against the native host product of the same entries."""
+    for points in (7, 27):
+        d = stencil_3d(SPGEMM_NX, points=points)
+        A = gtt.Csr.from_data(d, dtype=np.float32)
+        ad = A.to_matrix_data()
+        route = spgemm.spgemm_route(ad, ad, A.device)
+        t0 = time.perf_counter()
+        C = A.spgemm(A, strategy="classical")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = spgemm.spgemm_data(ad, ad, numeric="host")
+        host_s = time.perf_counter() - t0
+        got = C.to_matrix_data()
+        same = (np.array_equal(got.row_idx, want.row_idx)
+                and np.array_equal(got.col_idx, want.col_idx))
+        err = (float(np.abs(got.values.astype(np.float64) - want.values)
+                     .max() / np.abs(want.values).max()) if same
+               else float("inf"))
+        say(f"spgemm_{points}pt", n=A.shape[0], nnz=A.nnz,
+            flops=spgemm.spgemm_flops(ad, ad), route=route,
+            seconds=seconds, host_native_s=host_s, c_nnz=C.nnz,
+            device=str(C.device), same_pattern=same, max_rel_err=err)
+        if route != ("device" if points == 7 else "host"):
+            raise AssertionError(f"spgemm {points}pt: route {route}")
+        if not (same and err <= SPGEMM_TOL):
+            raise AssertionError(f"spgemm {points}pt: pattern equal {same},"
+                                 f" rel err {err:.3e}")
+        del C, A, got, want
+
+
+def phase_rcm_case(A_plain):
+    """``build_matrix_data`` of the ILU case with ``rcm``: the layout the
+    planner chose and one SpMV's time beside the unreordered matrix's,
+    the apply held against the f64 COO product."""
+    t0 = time.perf_counter()
+    d = build_matrix_data({**ILU_CASE, "rcm": True})
+    case_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A = gtt.Csr.from_data(d, dtype=np.float32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    x = torch.randn((A.shape[0], 1), dtype=torch.float32, device=DEV)
+    reset_counters()
+    y = A.apply(x)
+    launches = read_counters()
+    err = rel_err(y, coo_spmv(A.row_idx, A.col_idx, A.values.double(),
+                              x.double(), A.shape[0]))[0]
+    say("rcm_case", case_s=case_s, setup_s=setup_s, n=A.shape[0],
+        nnz=A.nnz, strategy=A.strategy, unreordered_strategy=A_plain.strategy,
+        spmv_ms=time_ms(lambda: A.apply(x), 50, queue_ahead=True),
+        unreordered_spmv_ms=time_ms(lambda: A_plain.apply(x), 50,
+                                    queue_ahead=True),
+        max_rel_err=err, launches=seen(launches))
+    if not err <= TOL[torch.float32]:
+        raise AssertionError(f"rcm case: SpMV rel err {err:.3e}")
+
+
+def phase_diagonal(A, A_small, d_small):
+    """The five methods ``Diagonal`` gained, on the banded system's
+    diagonal taken through ``Coo.extract_diagonal`` on the card, against
+    their plain torch formulas; ``Diagonal.from_data`` must give the
+    values ``extract_diagonal`` gives (on the nx=100 system: canonicalising
+    the nx=160 data again would take seconds of host work)."""
+    D = A.to_coo().extract_diagonal()
+    v = D.values
+    b = torch.randn((3, v.shape[0]), dtype=torch.float32, device=DEV)
+    checks = {
+        "rapply": torch.equal(D.rapply(b), b * v[None, :]),
+        "compute_absolute": torch.equal(D.compute_absolute().values,
+                                        torch.abs(v)),
+        "conj_transpose": torch.equal(D.conj_transpose().values, v.conj()),
+        "transpose": D.transpose() is D,
+        "from_data": torch.equal(
+            gtt.Diagonal.from_data(d_small, dtype=np.float32).values,
+            A_small.to_coo().extract_diagonal().values),
+    }
+    say("diagonal", n=v.shape[0], device=str(v.device), checks=checks)
+    if v.device.type != DEV.type or not all(checks.values()):
+        raise AssertionError(f"Diagonal on the card: {checks}")
+
+
+def small_algebra_match_cpu():
+    """f64 on the card against the port's CPU run: ISAI in its four modes
+    (the DIA fill on the stencil, the host fill on the FEM matrix), SSOR
+    and Gauss-Seidel applies, and ``spgemm_data``'s device numeric on
+    both; ``Direct`` and MC64-``ScaledReordered`` solves on the stencil
+    (the unordered FEM matrix's LU fills in to seconds a factorization);
+    each to 1e-10."""
+    cpu = torch.device("cpu")
+    for label, d in (("stencil", stencil_3d(8, points=27)),
+                     ("fem", build_matrix_data({"fem": 2048,
+                                                "offscale": 1.2}))):
+        Ag, Ac = (gtt.Csr.from_data(d, device=dev) for dev in (DEV, cpu))
+        x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (d.shape[0], 2)))
+        factories = {**{f"isai_{m}": Isai(mode=m) for m in
+                        ("general", "lower", "upper", "spd")},
+                     "ssor": Sor(symmetric=True), "gs": GaussSeidel()}
+        if label == "stencil":
+            factories.update(direct=Direct(), mc64_direct=ScaledReordered(
+                inner_operator=Direct(), reordering=Mc64()))
+        errs = {}
+        for name, factory in factories.items():
+            yg, yc = (factory.generate(A).apply(x.to(A.device))
+                      for A in (Ag, Ac))
+            errs[name] = rel_err(yg.cpu(), yc)[0]
+        got = spgemm.spgemm_data(d, d, numeric="device", device=DEV)
+        want = spgemm.spgemm_data(d, d, numeric="device", device=cpu)
+        errs["spgemm_device"] = (
+            float(np.abs(got.values - want.values).max()
+                  / np.abs(want.values).max())
+            if np.array_equal(got.row_idx, want.row_idx)
+            and np.array_equal(got.col_idx, want.col_idx) else float("inf"))
+        say("small_algebra", matrix=label, rel_err=errs)
+        bad = {k: v for k, v in errs.items() if not v <= 1e-10}
+        if bad:
+            raise AssertionError(f"small {label}: the card and the host "
+                                 f"differ: {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -2649,12 +3031,22 @@ def main() -> int:
     small_gmres_match_cpu()
     runs.append(main_block_jacobi("main_block_jacobi", Ab, banded_iters))
     del Ap
-    runs += main_formats_banded(d_banded, Ab, banded_iters, banded_x)
+    d_small = stencil_3d(SMALL_FORMAT_NX, points=27)
+    A_small = gtt.Csr.from_data(d_small, dtype=np.float32)
+    runs += main_formats_banded(d_banded, Ab, banded_iters, banded_x,
+                                d_small, A_small)
+    phase_diagonal(Ab, A_small, d_small)
+    del d_small, A_small
     del Ab, banded_x
     d_file = phase_mtx_io(d_ilu)
     runs += main_formats_packed(d_file, Ai, bare_iters)
     del d_file
     small_formats_match_cpu()
+
+    # ISAI and SOR on the ILU system, then its RCM-reordered case
+    runs.append(main_isai_general(Ai, bare_iters))
+    runs += main_sor(Ai, bare_iters, ilu_iters)
+    phase_rcm_case(Ai)
 
     # the DIA ParILUT/ParICT path and the adaptive block Jacobi at n =
     # 262,144 (the DIA loop's universe slab: 161 x n f32 for ParILUT)
@@ -2668,8 +3060,14 @@ def main() -> int:
     runs.append(main_dia("main_ict_dia", Ad, ParIct, Ic, Cg))
     runs.append(main_block_jacobi("main_block_jacobi_adaptive", Ad,
                                   storage_optimization="auto"))
+    runs.append(main_isai_spd(Ad))
     del Ad
     small_dia_and_block_jacobi_match_cpu()
+
+    # sparse direct solvers and sparse products
+    runs += main_direct(stencil_2d(DIRECT_NX, points=5))
+    phase_spgemm()
+    small_algebra_match_cpu()
 
     # the complex path, complex64 at the full width: A = P (1 + 0.02i) +
     # 0.5i I on both layouts and the Hermitian H on the banded one

@@ -1,8 +1,9 @@
 """Benchmark test cases (``ginkgo_tpu/benchmark/runner.py`` in torch).
 
 Only ``build_matrix_data`` is ported so far: Matrix Market files, the
-stencils and the unstructured FEM class.  The generator code is the JAX
-package's, so the same case and seed give the same matrix.
+stencils and the unstructured FEM class, each optionally RCM-reordered.
+The generator code is the JAX package's, so the same case and seed give
+the same matrix.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import numpy as np
 
 from ..base.matrix_data import MatrixData
 from ..base.mtx_io import read_mtx
+from ..reorder.rcm import rcm_ordering
 from ..utils.generators import stencil_2d, stencil_3d
 
 
@@ -19,14 +21,11 @@ def build_matrix_data(case: dict) -> MatrixData:
     {'stencil': '5pt|9pt|7pt|27pt', 'size': edge} or {'fem': n[, 'spread':
     600, 'per_row': 18, 'offscale': 0.1, 'sym': bool, 'seed': 5]} — the
     generated unstructured FEM class (random column offsets with mesh
-    locality, diagonally dominant values).  RCM reordering is a later
-    slice."""
-    if case.get("rcm"):
-        raise NotImplementedError(
-            "'rcm' test cases need the reorderings, which a later slice of "
-            "the port brings (ROADMAP.md, queue 1 item 8: reorder)")
+    locality, diagonally dominant values).  ``'rcm': True`` RCM-permutes a
+    file or FEM case."""
     if "filename" in case:
-        return read_mtx(case["filename"]).canonical()
+        d = read_mtx(case["filename"]).canonical()
+        return _rcm(d) if case.get("rcm") else d
     if "fem" in case:
         n = int(case["fem"])
         spread = int(case.get("spread", 600))
@@ -54,7 +53,7 @@ def build_matrix_data(case: dict) -> MatrixData:
                            np.concatenate([d.col_idx, d.row_idx]),
                            np.concatenate([d.values * 0.5,
                                            d.values * 0.5])).canonical()
-        return d
+        return _rcm(d) if case.get("rcm") else d
     st = case.get("stencil", "27pt")
     size = int(case.get("size", 32))
     if st in ("5pt", "9pt"):
@@ -62,3 +61,13 @@ def build_matrix_data(case: dict) -> MatrixData:
     if st in ("7pt", "27pt"):
         return stencil_3d(size, points=int(st[:-2]))
     raise ValueError(f"unknown test case {case!r}")
+
+
+def _rcm(d: MatrixData) -> MatrixData:
+    """RCM-permute a MatrixData (the framework's prescribed ordering
+    for unstructured problems)."""
+    perm = rcm_ordering(d)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size)
+    return MatrixData(d.shape, inv[d.row_idx], inv[d.col_idx],
+                      d.values.copy()).canonical()

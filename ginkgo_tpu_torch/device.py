@@ -19,3 +19,11 @@ def resolve_device(device=None) -> torch.device:
                 "is available; pass device='cpu' to run on the host")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def matrix_data_and_device(A):
+    """(host MatrixData, target device) of a factory's input: a port
+    operator keeps its device; plain MatrixData goes to the default
+    device (``resolve_device(None)``, the card)."""
+    data = A.to_matrix_data() if hasattr(A, "to_matrix_data") else A
+    return data, resolve_device(getattr(A, "device", None))

@@ -26,16 +26,9 @@ import numpy as np
 import torch
 
 from ..base.matrix_data import MatrixData
-from ..device import resolve_device
+from ..device import matrix_data_and_device
 from ..matrix.csr import Csr
 from .container import Factorization
-
-
-def _matrix_data_and_device(A):
-    """(host MatrixData, target device): a port operator keeps its device;
-    plain MatrixData goes to the default device."""
-    data = A.to_matrix_data() if hasattr(A, "to_matrix_data") else A
-    return data, resolve_device(getattr(A, "device", None))
 
 
 # ---------------------------------------------------------------------------
@@ -115,7 +108,7 @@ class ParIlu:
         self.iterations = iterations
 
     def generate(self, A) -> Factorization:
-        data, device = _matrix_data_and_device(A)
+        data, device = matrix_data_and_device(A)
         d, (lr, lc), (ur, uc) = _split_pattern(data)
         n = d.shape[0]
         pl, pu, po = _pair_lists(lr, lc, ur, uc, n)
@@ -218,7 +211,7 @@ class ParIc:
         self.both_factors = both_factors
 
     def generate(self, A) -> Factorization:
-        data, device = _matrix_data_and_device(A)
+        data, device = matrix_data_and_device(A)
         d = data.canonical()
         n = d.shape[0]
         keep = d.row_idx >= d.col_idx
@@ -276,7 +269,7 @@ class Ilu0:
     the dict-based Python elimination (small matrices only)."""
 
     def generate(self, A) -> Factorization:
-        data, device = _matrix_data_and_device(A)
+        data, device = matrix_data_and_device(A)
         d = data.canonical()
         n = d.shape[0]
         from ..native import ilu0_native
@@ -330,7 +323,7 @@ class Ic0:
     column loop is O(n^2) — toy sizes only."""
 
     def generate(self, A) -> Factorization:
-        data, device = _matrix_data_and_device(A)
+        data, device = matrix_data_and_device(A)
         d = data.canonical()
         n = d.shape[0]
         from ..native import ic0_native

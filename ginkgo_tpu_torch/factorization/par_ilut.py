@@ -41,9 +41,9 @@ import torch
 
 from ..base.exceptions import NotSupportedError
 from ..base.matrix_data import MatrixData
+from ..device import matrix_data_and_device
 from .container import Factorization
-from .par_ilu import (_build_factors, _factor_pair,
-                      _matrix_data_and_device)
+from .par_ilu import _build_factors, _factor_pair
 
 
 def _sorted_lookup(keys_sorted, vals, query, default=0.0):
@@ -300,7 +300,7 @@ class ParIlut:
         return cls(**kw)
 
     def generate(self, A) -> Factorization:
-        data, device = _matrix_data_and_device(A)
+        data, device = matrix_data_and_device(A)
         d = data.canonical()
         n = d.shape[0]
         dtype = d.values.dtype
@@ -497,7 +497,7 @@ class ParIct:
 
     def generate(self, A) -> Factorization:
         import scipy.sparse as sp
-        data, device = _matrix_data_and_device(A)
+        data, device = matrix_data_and_device(A)
         d = data.canonical()
         n = d.shape[0]
         dtype = d.values.dtype

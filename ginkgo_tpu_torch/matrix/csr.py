@@ -23,8 +23,9 @@ Strategies here:
 (``scale``, ``inv_scale``, ``compute_absolute``, ``astype``) and a
 classical ``add_scaled_identity`` run on the matrix's device; the format
 conversions, permutations and submatrices go through ``MatrixData`` on
-the host and plan again, as in the JAX package.  ``spgemm``/``spgeam``
-are not ported yet (they raise).
+the host and plan again, as in the JAX package; so do ``spgemm`` and
+``spgeam`` (``ops/spgemm.py``), whose product numeric may run on the
+matrix's device.
 """
 
 from __future__ import annotations
@@ -409,17 +410,32 @@ class Csr(LinOp):
         return new
 
     # -- sparse algebra ------------------------------------------------------------
+    def _algebra_kw(self, other, kw):
+        """A product or sum lands on this matrix's device, in the value
+        type the two operands promote to, unless the caller says
+        otherwise."""
+        kw.setdefault("device", self.device)
+        kw.setdefault("dtype", torch.promote_types(self.dtype, other.dtype))
+        return kw
+
     def spgemm(self, other, **kwargs):
-        """C = self @ other (``csr.cpp`` spgemm): not ported yet."""
-        raise NotImplementedError(
-            "Csr.spgemm needs ops/spgemm.py, which a later slice of the port "
-            "brings (ROADMAP.md, queue 1 item 8: sparse algebra)")
+        """C = self @ other (``csr.cpp`` spgemm): host symbolic, numeric
+        routed by this matrix's device and the product's size
+        (``ops.spgemm.spgemm_route``). One-shot; for repeated products on
+        fixed patterns use ops.spgemm.SpgemmReuse."""
+        from ..ops.spgemm import spgemm_data
+        return Csr.from_data(
+            spgemm_data(self.to_matrix_data(), other.to_matrix_data(),
+                        device=self.device),
+            **self._algebra_kw(other, kwargs))
 
     def spgeam(self, alpha, beta, other, **kwargs):
-        """C = alpha*self + beta*other: not ported yet."""
-        raise NotImplementedError(
-            "Csr.spgeam needs ops/spgemm.py, which a later slice of the port "
-            "brings (ROADMAP.md, queue 1 item 8: sparse algebra)")
+        """C = alpha*self + beta*other (pattern union)."""
+        from ..ops.spgemm import spgeam_data
+        return Csr.from_data(
+            spgeam_data(alpha, self.to_matrix_data(), beta,
+                        other.to_matrix_data()),
+            **self._algebra_kw(other, kwargs))
 
     # -- host rebuilds ---------------------------------------------------------------
     def permute(self, perm, mode=None, **kwargs):

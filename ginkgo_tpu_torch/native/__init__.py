@@ -8,10 +8,16 @@ available: callers treat it as an accelerator, never a requirement, and
 their numpy fallbacks give the same result.
 
 Only the entry points the ported modules call are bound: the Matrix
-Market reader (``base/mtx_io.py``), dependency levels (triangular solves), ILU pair lists (ParILU), exact ILU(0)/IC(0), the COO
-canonicalizer (``MatrixData.sum_duplicates``), and for ParILUT/ParICT the
+Market reader (``base/mtx_io.py``), dependency levels (triangular
+solves), ILU pair lists (ParILU), exact ILU(0)/IC(0), the COO
+canonicalizer (``MatrixData.sum_duplicates``), for ParILUT/ParICT the
 row-major pair emitters, the packed pair-contraction planner, the fused
-candidate passes and the Gauss-Seidel sweeps.
+candidate passes and the Gauss-Seidel sweeps, the streaming SpGEMM and
+its pair unique (``ops/spgemm.py``), sparse LU and Cholesky with fill
+(``factorization/direct.py``), the AMD, nested-dissection and MC64
+orderings (``reorder/``) and the ISAI block fill and pair list
+(``preconditioner/isai.py``).  ``gt_parilut_sweep`` (column-major U
+sweeps) has no caller in either package and is left unbound.
 """
 
 from __future__ import annotations
@@ -131,6 +137,44 @@ def _bind(lib):
                                          i64p, i64p, f64p, i64p, i64p,
                                          f64p, ctypes.c_int64,
                                          ctypes.c_int32]
+    lib.gt_spgemm_count.restype = ctypes.c_int64
+    lib.gt_spgemm_count.argtypes = [ctypes.c_int64, ctypes.c_int64, i64p,
+                                    i64p, i64p, i64p]
+    lib.gt_spgemm_fill.restype = ctypes.c_int64
+    lib.gt_spgemm_fill.argtypes = [ctypes.c_int64, ctypes.c_int64, i64p,
+                                   i64p, f64p, i64p, i64p, f64p, i64p,
+                                   i64p, f64p, ctypes.c_int32]
+    lib.gt_pairs_unique.restype = ctypes.c_int64
+    lib.gt_pairs_unique.argtypes = [ctypes.c_int64, i64p, i64p, i64p,
+                                    ctypes.c_int64, i64p, i64p]
+    lib.gt_mc64_match.restype = ctypes.c_int
+    lib.gt_mc64_match.argtypes = [ctypes.c_int64, i64p, i64p, f64p, f64p,
+                                  i64p, i64p, i64p, ctypes.c_double]
+    lib.gt_amd_order.restype = ctypes.c_int
+    lib.gt_amd_order.argtypes = [ctypes.c_int64, i64p, i64p, i64p]
+    lib.gt_nd_order.restype = ctypes.c_int
+    lib.gt_nd_order.argtypes = [ctypes.c_int64, i64p, i64p, i64p]
+    lib.gt_lu_factor.restype = ctypes.c_int64
+    lib.gt_lu_factor.argtypes = [ctypes.c_int64, ctypes.c_int64, i64p,
+                                 i64p, f64p, ctypes.c_int32, i64p, i64p]
+    lib.gt_chol_factor.restype = ctypes.c_int64
+    lib.gt_chol_factor.argtypes = [ctypes.c_int64, ctypes.c_int64, i64p,
+                                   i64p, f64p, ctypes.c_int32]
+    lib.gt_factor_fetch.restype = ctypes.c_int
+    lib.gt_factor_fetch.argtypes = [ctypes.c_int32, i64p, i64p, f64p,
+                                    ctypes.c_int32]
+    lib.gt_isai_fill.restype = ctypes.c_int
+    lib.gt_isai_fill.argtypes = [ctypes.c_int64, ctypes.c_int64, i64p,
+                                 i64p, f64p, i64p, i64p, f64p, f64p,
+                                 ctypes.c_int32]
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.gt_isai_pairs_count.restype = ctypes.c_int64
+    lib.gt_isai_pairs_count.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                                        i64p, i64p, i64p, i64p]
+    lib.gt_isai_pairs_fill.restype = ctypes.c_int64
+    lib.gt_isai_pairs_fill.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                                       i64p, i64p, i64p, i64p, i64p,
+                                       i64p, u8p, ctypes.c_int64]
     return lib
 
 
@@ -544,3 +588,229 @@ def parilut_sweep_csr_native(n, a_ptr, a_cols, a_vals, l_ptr, l_cols,
         _ptr(u_vals.view(np.float64), ctypes.c_double),
         int(iterations), int(is_cpx))
     return rc == 0 or None
+
+
+def spgemm_csr_native(n, m, a_ptr, a_cols, a_vals, b_ptr, b_cols, b_vals):
+    """Streaming Gustavson C = A @ B on row-major CSR: O(ncols)
+    workspace, O(nnz_C) output, never an O(flops) pair list (the
+    reference's hash/heap merge equivalents,
+    csr_kernels.template.cpp:1247-1290 / omp csr_kernels.cpp:457-520).
+    Returns (c_ptr, c_cols, c_vals) sorted within rows, or None."""
+    L = lib()
+    if L is None:
+        return None
+    is_cpx = np.iscomplexobj(a_vals) or np.iscomplexobj(b_vals)
+    work = np.complex128 if is_cpx else np.float64
+    a_ptr = np.ascontiguousarray(a_ptr, np.int64)
+    a_cols = np.ascontiguousarray(a_cols, np.int64)
+    b_ptr = np.ascontiguousarray(b_ptr, np.int64)
+    b_cols = np.ascontiguousarray(b_cols, np.int64)
+    a_vals = np.ascontiguousarray(a_vals, work)
+    b_vals = np.ascontiguousarray(b_vals, work)
+
+    def fp(a):
+        return _ptr(a.view(np.float64), ctypes.c_double)
+
+    nnz = L.gt_spgemm_count(n, m, _ptr(a_ptr, ctypes.c_int64),
+                            _ptr(a_cols, ctypes.c_int64),
+                            _ptr(b_ptr, ctypes.c_int64),
+                            _ptr(b_cols, ctypes.c_int64))
+    c_ptr = np.zeros(n + 1, np.int64)
+    c_cols = np.empty(nnz, np.int64)
+    c_vals = np.empty(nnz, work)
+    got = L.gt_spgemm_fill(n, m, _ptr(a_ptr, ctypes.c_int64),
+                           _ptr(a_cols, ctypes.c_int64), fp(a_vals),
+                           _ptr(b_ptr, ctypes.c_int64),
+                           _ptr(b_cols, ctypes.c_int64), fp(b_vals),
+                           _ptr(c_ptr, ctypes.c_int64),
+                           _ptr(c_cols, ctypes.c_int64), fp(c_vals),
+                           int(is_cpx))
+    if got != nnz:
+        return None
+    return c_ptr, c_cols, c_vals
+
+
+def pairs_unique_native(n, pair_ptr, pair_j, cap_hint=None):
+    """Row-grouped unique of SpGEMM contribution pairs: returns
+    (inv, rows, cols) — inv maps each pair to its slot in the row-major
+    output pattern — without a global O(flops log flops) sort.  None
+    when native is unavailable."""
+    L = lib()
+    if L is None:
+        return None
+    pair_ptr = np.ascontiguousarray(pair_ptr, np.int64)
+    pair_j = np.ascontiguousarray(pair_j, np.int64)
+    total = int(pair_ptr[-1])
+    inv = np.empty(total, np.int64)
+    cap = int(cap_hint) if cap_hint else min(total, 4 * total // 5 + 64)
+
+    def run(cap):
+        rows = np.empty(cap, np.int64)
+        cols = np.empty(cap, np.int64)
+        nnz_c = L.gt_pairs_unique(n, _ptr(pair_ptr, ctypes.c_int64),
+                                  _ptr(pair_j, ctypes.c_int64),
+                                  _ptr(inv, ctypes.c_int64), cap,
+                                  _ptr(rows, ctypes.c_int64),
+                                  _ptr(cols, ctypes.c_int64))
+        return nnz_c, rows, cols
+
+    nnz_c, rows, cols = run(cap)
+    if nnz_c > cap:
+        nnz_c, rows, cols = run(nnz_c)
+    return inv, rows[:nnz_c], cols[:nnz_c]
+
+
+def mc64_match_native(n, ptr, cols, c, u, tol):
+    """Sparse shortest-augmenting-path assignment (MC64 core).
+    Returns (ok, p, ip, midx, u) or None when unavailable.  ``u`` is
+    updated to the final column dual potentials."""
+    L = lib()
+    if L is None:
+        return None
+    ptr = np.ascontiguousarray(ptr, np.int64)
+    cols = np.ascontiguousarray(cols, np.int64)
+    c = np.ascontiguousarray(c, np.float64)
+    u = np.ascontiguousarray(u, np.float64)
+    p = np.empty(n, np.int64)
+    ip = np.empty(n, np.int64)
+    midx = np.empty(n, np.int64)
+    rc = L.gt_mc64_match(n, _ptr(ptr, ctypes.c_int64),
+                         _ptr(cols, ctypes.c_int64),
+                         _ptr(c, ctypes.c_double),
+                         _ptr(u, ctypes.c_double),
+                         _ptr(p, ctypes.c_int64),
+                         _ptr(ip, ctypes.c_int64),
+                         _ptr(midx, ctypes.c_int64), float(tol))
+    return rc == 0, p, ip, midx, u
+
+
+def _fetch_triplets(L, which, count, is_cpx):
+    """Copy factor ``which`` (0: L, 1: U) of the last native
+    factorization out of the library's staging buffers."""
+    r = np.empty(count, np.int64)
+    c = np.empty(count, np.int64)
+    v = np.empty(count, np.complex128 if is_cpx else np.float64)
+    L.gt_factor_fetch(which, _ptr(r, ctypes.c_int64),
+                      _ptr(c, ctypes.c_int64),
+                      _ptr(v.view(np.float64), ctypes.c_double),
+                      int(is_cpx))
+    return r, c, v
+
+
+def lu_factor_native(n, rows, cols, vals):
+    """Sparse LU with fill (no pivoting; IKJ order).  Returns
+    ((lr, lc, lv) strict lower, (ur, uc, uv) upper incl diag) or None.
+    Not thread-safe (process-global staging)."""
+    L = lib()
+    if L is None:
+        return None
+    is_cpx = np.iscomplexobj(vals)
+    rows = np.ascontiguousarray(rows, np.int64)
+    cols = np.ascontiguousarray(cols, np.int64)
+    vals = np.ascontiguousarray(
+        vals, np.complex128 if is_cpx else np.float64)
+    l_nnz = ctypes.c_int64()
+    u_nnz = ctypes.c_int64()
+    tot = L.gt_lu_factor(n, len(rows), _ptr(rows, ctypes.c_int64),
+                         _ptr(cols, ctypes.c_int64),
+                         _ptr(vals.view(np.float64), ctypes.c_double),
+                         int(is_cpx), ctypes.byref(l_nnz),
+                         ctypes.byref(u_nnz))
+    if tot < 0:
+        return None
+    lt = _fetch_triplets(L, 0, l_nnz.value, is_cpx)
+    ut = _fetch_triplets(L, 1, u_nnz.value, is_cpx)
+    return lt, ut
+
+
+def chol_factor_native(n, rows, cols, vals):
+    """Sparse Cholesky with fill; returns (lr, lc, lv) or None."""
+    L = lib()
+    if L is None:
+        return None
+    is_cpx = np.iscomplexobj(vals)
+    rows = np.ascontiguousarray(rows, np.int64)
+    cols = np.ascontiguousarray(cols, np.int64)
+    vals = np.ascontiguousarray(
+        vals, np.complex128 if is_cpx else np.float64)
+    cnt = L.gt_chol_factor(n, len(rows), _ptr(rows, ctypes.c_int64),
+                           _ptr(cols, ctypes.c_int64),
+                           _ptr(vals.view(np.float64), ctypes.c_double),
+                           int(is_cpx))
+    if cnt < 0:
+        return None
+    return _fetch_triplets(L, 0, cnt, is_cpx)
+
+
+def _order_native(fn, n, ptr, adj):
+    ptr = np.ascontiguousarray(ptr, np.int64)
+    adj = np.ascontiguousarray(adj, np.int64)
+    perm = np.empty(max(n, 1), np.int64)
+    rc = fn(n, _ptr(ptr, ctypes.c_int64), _ptr(adj, ctypes.c_int64),
+            _ptr(perm, ctypes.c_int64))
+    if rc != 0:
+        return None
+    return perm[:n]
+
+
+def amd_order_native(n, ptr, adj):
+    """Approximate minimum degree ordering (quotient graph), or None.
+    ``ptr``/``adj`` describe the symmetrized pattern without diagonal."""
+    L = lib()
+    if L is None:
+        return None
+    return _order_native(L.gt_amd_order, n, ptr, adj)
+
+
+def nd_order_native(n, ptr, adj):
+    """Multilevel nested dissection ordering (heavy-edge coarsening +
+    FM-refined vertex separators + AMD leaf blocks), or None.
+    ``ptr``/``adj`` describe the symmetrized pattern without diagonal."""
+    L = lib()
+    if L is None:
+        return None
+    return _order_native(L.gt_nd_order, n, ptr, adj)
+
+
+def isai_fill_native(S, a_ptr, a_cols, a_vals, p_ptr, p_cols, subs, rhs):
+    """Fill the (n, S, S) ISAI blocks subs[i,a,b] = A(J_b, J_a) and rhs
+    e_i(J) IN PLACE (subs identity-initialized, rhs zeroed; f64/c128
+    contiguous).  Returns True, or None when native is unavailable."""
+    L = lib()
+    if L is None:
+        return None
+    n = p_ptr.shape[0] - 1
+    is_cpx = np.iscomplexobj(a_vals)
+    rc = L.gt_isai_fill(
+        n, int(S), _ptr(a_ptr, ctypes.c_int64), _ptr(a_cols, ctypes.c_int64),
+        a_vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        _ptr(p_ptr, ctypes.c_int64), _ptr(p_cols, ctypes.c_int64),
+        subs.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        rhs.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        1 if is_cpx else 0)
+    return rc == 0 or None
+
+
+def isai_pairs_native(S, a_ptr, a_cols, p_ptr, p_cols):
+    """(dest, loc, hit) pair list for the device-resident ISAI fill
+    (gt_isai_pairs_count/fill): A hits + diagonal-miss clears, in the
+    (i, b, a-merge) walk order.  None when native is unavailable."""
+    L = lib()
+    if L is None:
+        return None
+    n = p_ptr.shape[0] - 1
+    args = (n, int(S), _ptr(a_ptr, ctypes.c_int64),
+            _ptr(a_cols, ctypes.c_int64), _ptr(p_ptr, ctypes.c_int64),
+            _ptr(p_cols, ctypes.c_int64))
+    count = L.gt_isai_pairs_count(*args)
+    if count < 0:
+        return None
+    dest = np.empty(count, np.int64)
+    loc = np.empty(count, np.int64)
+    hit = np.empty(count, np.uint8)
+    got = L.gt_isai_pairs_fill(
+        *args, _ptr(dest, ctypes.c_int64), _ptr(loc, ctypes.c_int64),
+        hit.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), count)
+    if got != count:
+        return None
+    return dest, loc, hit.astype(bool)

@@ -1,6 +1,7 @@
 """Krylov and relaxation solvers (``core/solver/`` analogs): CG, FCG,
 pipelined CG, BiCG, BiCGSTAB, CGS, MINRES, GMRES and CB-GMRES, GCR, IDR,
-IR/Richardson and Chebyshev, and the triangular solves."""
+IR/Richardson and Chebyshev, the triangular solves and the direct
+solver."""
 
 from .common import SolveResult, SolverOp  # noqa: F401
 from .bicg import Bicg  # noqa: F401
@@ -16,3 +17,4 @@ from .ir import Ir, Richardson  # noqa: F401
 from .minres import Minres  # noqa: F401
 from .pipe_cg import PipeCg  # noqa: F401
 from .triangular import LowerTrs, UpperTrs  # noqa: F401
+from .direct import Direct  # noqa: F401

@@ -460,11 +460,24 @@ def test_csr_add_scaled_identity_needs_the_diagonal():
 
 
 def test_csr_spgemm_and_spgeam_name_their_slice():
-    A = gtt.Csr.from_data(tgen.stencil_2d(4), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        A.spgemm(A)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        A.spgeam(1.0, 1.0, A)
+    """``Csr.spgemm``/``spgeam`` (once raises naming their slice) against
+    the JAX package's on the same matrices: equal patterns, values to
+    1e-12, the result on the operands' device."""
+    d = tgen.stencil_2d(6)
+    e = tgen.generate_random_matrix(36, 36, nonzeros_per_row=(1, 5), seed=8)
+    A = gtt.Csr.from_data(d, device="cpu")
+    B = gtt.Csr.from_data(e, device="cpu")
+    Aj = gt.Csr.from_data(gt.MatrixData(d.shape, d.row_idx, d.col_idx,
+                                        d.values))
+    Bj = gt.Csr.from_data(gt.MatrixData(e.shape, e.row_idx, e.col_idx,
+                                        e.values))
+    for got, want in ((A.spgemm(B), Aj.spgemm(Bj)),
+                      (A.spgeam(2.0, -0.5, B), Aj.spgeam(2.0, -0.5, Bj))):
+        assert got.device == CPU and got.dtype == torch.float64
+        g, w = got.to_matrix_data(), want.to_matrix_data()
+        assert np.array_equal(g.row_idx, w.row_idx)
+        assert np.array_equal(g.col_idx, w.col_idx)
+        np.testing.assert_allclose(g.values, w.values, rtol=1e-12)
 
 
 def test_linop_generic_dtype_device_and_to_dense():

@@ -75,13 +75,13 @@ def test_generator_matches_jax(tmp_path):
     for case in ({"fem": 2048, "offscale": 1.2},
                  {"fem": 1000, "sym": True},
                  {"stencil": "7pt", "size": 6},
-                 {"filename": path}):
+                 {"filename": path},
+                 {"fem": 100, "rcm": True},
+                 {"filename": path, "rcm": True}):
         d, dj = build_matrix_data(case), jbuild(case)
         assert d.shape == dj.shape
         for name in ("row_idx", "col_idx", "values"):
             assert np.array_equal(getattr(d, name), getattr(dj, name))
-    with pytest.raises(NotImplementedError, match="reorder"):
-        build_matrix_data({"fem": 100, "rcm": True})
 
 
 FACTORIZATIONS = [

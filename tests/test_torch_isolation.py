@@ -34,7 +34,14 @@ def test_import_loads_no_jax():
             "ginkgo_tpu_torch.matrix.row_gatherer, "
             "ginkgo_tpu_torch.matrix.csr_lookup, "
             "ginkgo_tpu_torch.matrix.dense, "
-            "ginkgo_tpu_torch.base.composition; "
+            "ginkgo_tpu_torch.base.composition, "
+            "ginkgo_tpu_torch.reorder, ginkgo_tpu_torch.ops.spgemm, "
+            "ginkgo_tpu_torch.ops.components, "
+            "ginkgo_tpu_torch.ops.device_matrix_data, "
+            "ginkgo_tpu_torch.factorization.direct, "
+            "ginkgo_tpu_torch.solver.direct, "
+            "ginkgo_tpu_torch.preconditioner.isai, "
+            "ginkgo_tpu_torch.preconditioner.sor; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ginkgo_tpu' "
             "or m.startswith('ginkgo_tpu.')]; print(bad); "
@@ -79,6 +86,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
         gtt.Csr.from_data(d)
     with pytest.raises(RuntimeError, match="CUDA device by default"):
         csr_from_arrays({}, {"shape": d.shape})
+    from ginkgo_tpu_torch.factorization import Lu
+    from ginkgo_tpu_torch.ops.spgemm import spgemm_data
+    from ginkgo_tpu_torch.preconditioner import Isai, Sor
+    for entry in (lambda: gtt.Diagonal.from_data(d),
+                  lambda: Lu().generate(d), lambda: Isai().generate(d),
+                  lambda: Sor().generate(d),
+                  lambda: spgemm_data(d, d, numeric="device")):
+        with pytest.raises(RuntimeError, match="CUDA device by default"):
+            entry()
     assert port_device.resolve_device("cpu") == torch.device("cpu")
     A = gtt.Csr.from_data(d, device="cpu")
     assert A.device.type == "cpu" and A.diag_values.device.type == "cpu"
