@@ -156,6 +156,31 @@ exits non-zero:
 18l. small f64 runs on the card agree with the port's CPU run: ISAI in
    four modes, SSOR, Gauss-Seidel, ``Direct``, MC64-``ScaledReordered``
    and the device SpGEMM numeric, on a stencil and a FEM matrix;
+18m. main path, multigrid on the DIA system (after 18i):
+   ``Multigrid.build().generate`` of the nx=64 f32 stencil (``Pgm``'s
+   ``auto`` must take the ``dia`` matcher on the fine level), each
+   level's rows, entries, layout, route and transfer layout, the
+   generate's stagetimer split, one V-cycle's launches and its host
+   time beside the card's busy time (``torch.profiler``); MG-CG to
+   ``DIA_TOL`` in fewer iterations than scalar-Jacobi CG, the true
+   residual under it, the launches of kernels A and B an iteration; the
+   standalone ``Multigrid`` solve and W-cycle CG to the same tolerance;
+   then ``ir_df64`` (4 sweeps, inner CG to ``[Iteration(200),
+   ResidualNorm(1e-6)]``): the df64 iterate's f64 true residual under
+   5e-11; the mixed multigrid (the same stencil in f64 on kernel A's f64
+   instance, ``coarse_dtype=torch.float32``): CG to 1e-8 with the f64
+   true residual under it; ``ir_dc64`` on A = P (1 + 0.02i) + 0.5i I of
+   that stencil (complex64 BiCGSTAB to 1e-5 on kernel A-c inside, 5
+   sweeps): the complex128 true residual under 1e-11;
+18n. small f64 runs on the card agree with the port's CPU run: the
+   ``dia`` and ``packed`` matchers' roots index for index (``stencil_3d(8,
+   points=27)``, the FEM matrix at n = 2,048), MG-CG with the V, W, F and
+   K cycles (equal iterations, x to 1e-10);
+18o. main path, multigrid on the ILU system (after 18h): ``auto`` takes
+   the ``packed`` matcher (``plan_offsets`` declines the FEM matrix),
+   aggregates of at most 8 rows; V-cycle-preconditioned BiCGSTAB to
+   ``ResidualNorm(1e-5)`` in fewer iterations than the bare solve's,
+   beside ILU's;
 19. the complex path at full width: ``Csr.from_data(..., dtype=
    np.complex64)`` of A = P (1 + 0.02i) + 0.5i I (P the nx=160 stencil,
    ``banded`` layout), of the Hermitian H = P + 1.02 I + 0.02i (U - U^T)
@@ -217,6 +242,9 @@ from ginkgo_tpu_torch.ops import (_cuda, pair_contract, registry,
                                   spmv_packed, spmv_sell, tri_packed)
 from ginkgo_tpu_torch.ops.attic import spmv_chunked, spmv_windowed
 from ginkgo_tpu_torch.matrix.csr_lookup import CsrLookup
+from ginkgo_tpu_torch.multigrid import pgm_dia, pgm_packed
+from ginkgo_tpu_torch.ops.dc64 import dc_from_c64, dc_to_c128, ir_dc64
+from ginkgo_tpu_torch.ops.df64 import ir_df64
 from ginkgo_tpu_torch.matrix.permutation import permute_data
 from ginkgo_tpu_torch.ops.spmv import coo_spmv
 from ginkgo_tpu_torch.preconditioner import (GaussSeidel, Ic, Ilu, Isai,
@@ -225,7 +253,8 @@ from ginkgo_tpu_torch.preconditioner import isai as isai_mod
 from ginkgo_tpu_torch.reorder import Mc64, NestedDissection, ScaledReordered
 from ginkgo_tpu_torch.solver import (Bicg, Bicgstab, CbGmres, Cg, Cgs,
                                      Chebyshev, Direct, Fcg, Gcr, Gmres,
-                                     Idr, Ir, Minres, PipeCg)
+                                     Idr, Ir, Minres, Multigrid, PipeCg)
+from ginkgo_tpu_torch.solver.multigrid import MultigridOp
 from ginkgo_tpu_torch.solver import gmres as gmres_mod
 from ginkgo_tpu_torch.stop import Iteration, ResidualNorm
 from ginkgo_tpu_torch.ops.tri_inv import batched_lowtri_inverse
@@ -353,6 +382,13 @@ SPGEMM_NX = 64
 SPGEMM_TOL = 1e-6
 LOOKUP_QUERIES = 1_000_000
 FFT_EDGE = BANDED_NX
+# the mixed multigrid's tolerance (f64 fine level), and the refinements'
+# sweeps and pins (tests/test_df64.py, tests/test_complex_sweep.py)
+MIXED_TOL = 1e-8
+IR_DF64_SWEEPS = 4
+IR_DF64_LIMIT = 5e-11
+IR_DC64_SWEEPS = 5
+IR_DC64_LIMIT = 1e-11
 DEV = torch.device("cuda")
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 1e-5,
        torch.float16: 1e-5, torch.complex64: 1e-5, torch.complex128: 1e-12}
@@ -2928,6 +2964,316 @@ def small_algebra_match_cpu():
                                  f"differ: {bad}")
 
 
+# -- multigrid and the precision tiers ------------------------------------------
+def profile_ms(fn, per=1):
+    """One call of ``fn`` under ``torch.profiler`` after a warm-up call:
+    host ms and device busy ms (the kernels' own time) for each of the
+    ``per`` steps the call makes, and its kernels by time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0), reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    return dict(host_ms=host_s * 1e3 / per,
+                device_busy_ms=busy_us / 1e3 / per,
+                busy_share=busy_us / 1e6 / host_s,
+                kernels=sum(r[2] for r in rows) / per,
+                top_us=[[key[:48], us / per, count / per]
+                        for us, key, count in rows[:6]])
+
+
+def mg_levels(mg):
+    """Each level's rows, entries, layout, value type, aggregation route
+    and transfer layout (``packed``: kernel B; ``gather``: a gather and
+    an ``index_add_``), then the coarsest level's rows."""
+    rows = []
+    for lvl in mg.levels:
+        P = getattr(lvl.prolong, "inner", lvl.prolong)
+        op = lvl.fine_op
+        rows.append(dict(n=op.shape[0], nnz=op.nnz, strategy=op.strategy,
+                         dtype=str(op.dtype).replace("torch.", ""),
+                         route=lvl.route,
+                         transfer="gather" if P.op is None
+                         else P.op.strategy))
+    rows.append(dict(n=mg.coarsest.shape[0], coarsest="dense inverse"))
+    return rows
+
+
+def counted(fn):
+    """``fn()`` with the kernel counts zeroed just before and read just
+    after: (its result, seconds, launches)."""
+    reset_counters()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counters()
+
+
+def mg_solve_fields(A, res, seconds, launches, b):
+    iters = int(res.iterations[0])
+    return dict(iterations=iters, converged=bool(res.converged.all()),
+                stagnated=None if res.stagnated is None
+                else bool(res.stagnated.any()),
+                solve_s=seconds, ms_per_iteration=seconds * 1e3 / max(iters,
+                                                                    1),
+                true_rel_residual=true_rel_residual(A, b, res.x),
+                launches=seen(launches))
+
+
+def main_mg_dia(A):
+    """AMG on the DIA system (``stencil_3d(64, points=27)``, f32): the
+    generate (``Pgm``'s ``auto`` must take the ``dia`` matcher on the
+    fine level) with its stagetimer split, each level, one V-cycle's
+    launches and host/busy split, MG-CG to ``DIA_TOL`` in fewer
+    iterations than scalar-Jacobi CG, then the standalone ``Multigrid``
+    solve and the W-cycle as the preconditioner.  Returns (the counted
+    launches of the three solves, MG-CG's iterations)."""
+    mg, setup = timed_generate(Multigrid.build(), A)
+    levels = mg_levels(mg)
+    C = mg.cycle_operator()
+    b = torch.ones(A.shape[0], dtype=torch.float32, device=DEV)
+    _, _, cycle_launches = counted(lambda: C.apply(b))
+    cycle = profile_ms(lambda: C.apply(b))
+    res, seconds, launches, true_rel = counted_solve(A, Cg, C, DIA_TOL)
+    iters = int(res.iterations[0])
+    iteration = profile_ms(lambda: Cg.solve(A, b, criteria=Iteration(5),
+                                            preconditioner=C), per=5)
+    jacobi = bare_solve(A, Cg, DIA_TOL, Jacobi().generate(A))
+    crit = Iteration(500) | ResidualNorm(DIA_TOL)
+    alone, alone_s, alone_launches = counted(lambda: mg.solve(b,
+                                                              criteria=crit))
+    Cw = MultigridOp(mg.levels, mg.smoothers, mg.coarsest,
+                     cycle="w").cycle_operator()
+    wres, w_s, w_launches = counted(lambda: Cg.solve(
+        A, b, criteria=Iteration(2000) | ResidualNorm(DIA_TOL),
+        preconditioner=Cw))
+    say("main_mg_dia", n=A.shape[0], nnz=A.nnz, strategy=A.strategy,
+        generate=setup, levels=levels, v_cycle_launches=seen(cycle_launches),
+        v_cycle=cycle, iterations=iters,
+        scalar_jacobi_iterations=jacobi["iterations"],
+        converged=bool(res.converged.all()),
+        stagnated=bool(res.stagnated.any()), solve_s=seconds,
+        ms_per_iteration=seconds * 1e3 / max(iters, 1),
+        launches_per_iteration={k: v / iters for k, v in
+                                seen(launches).items()},
+        iteration_profile=iteration, true_rel_residual=true_rel,
+        launches=seen(launches),
+        standalone=mg_solve_fields(A, alone, alone_s, alone_launches, b),
+        w_cycle_cg=mg_solve_fields(A, wres, w_s, w_launches, b))
+    if mg.levels[0].route != "dia":
+        raise AssertionError(f"MG on the DIA system: the fine level took "
+                             f"the {mg.levels[0].route} matcher, not dia")
+    kernels = ["dia_spmv"] + ["pell_spmv"] * any(
+        lvl["strategy"] == "packed" or lvl["transfer"] == "packed"
+        for lvl in levels[:-1])
+    check_solve("MG-CG (dia)", res, launches, true_rel, DIA_TOL, kernels)
+    if not iters < jacobi["iterations"]:
+        raise AssertionError(f"MG-CG: {iters} iterations, scalar Jacobi "
+                             f"{jacobi['iterations']}")
+    for label, r, extra in (("standalone MG", alone, alone_launches),
+                            ("W-cycle CG", wres, w_launches)):
+        check_solve(label, r, extra, true_rel_residual(A, b, r.x), DIA_TOL,
+                    ["dia_spmv"])
+    return [launches, alone_launches, w_launches], iters
+
+
+def main_mg_packed(A, bare_iters, ilu_iters):
+    """AMG on the ILU system's FEM matrix (``packed``): ``plan_offsets``
+    declines it, so ``auto`` takes the ``packed`` matcher; its stagetimer
+    split, the coarse size and the largest aggregate, the levels; then
+    BiCGSTAB preconditioned by one V-cycle to ``ILU_TOL`` in fewer
+    iterations than the bare solve.  Returns the counted launches."""
+    mg, setup = timed_generate(Multigrid.build(), A)
+    lvl = mg.levels[0]
+    sizes = torch.bincount(lvl.prolong.agg)
+    C = mg.cycle_operator()
+    b = torch.ones(A.shape[0], dtype=torch.float32, device=DEV)
+    _, _, cycle_launches = counted(lambda: C.apply(b))
+    res, seconds, launches, true_rel = counted_solve(A, Bicgstab, C, ILU_TOL,
+                                                     cap=1000)
+    iters = int(res.iterations[0])
+    say("main_mg_packed", n=A.shape[0], nnz=A.nnz, strategy=A.strategy,
+        generate=setup, route=lvl.route, num_coarse=lvl.coarse_op.shape[0],
+        largest_aggregate=int(sizes.max()), levels=mg_levels(mg),
+        v_cycle_launches=seen(cycle_launches),
+        v_cycle=profile_ms(lambda: C.apply(b)), iterations=iters,
+        unpreconditioned_iterations=bare_iters, ilu_iterations=ilu_iters,
+        converged=bool(res.converged.all()),
+        stagnated=bool(res.stagnated.any()), solve_s=seconds,
+        ms_per_iteration=seconds * 1e3 / max(iters, 1),
+        true_rel_residual=true_rel, launches=seen(launches))
+    if lvl.route != "packed" or A.strategy != "packed":
+        raise AssertionError(f"MG on the FEM matrix: route {lvl.route}, "
+                             f"layout {A.strategy}, not packed")
+    if int(sizes.max()) > 8:
+        raise AssertionError(f"MG: an aggregate of {int(sizes.max())} rows")
+    check_solve("MG-BiCGSTAB (packed)", res, launches, true_rel, ILU_TOL,
+                ["pell_spmv"])
+    if not iters < bare_iters:
+        raise AssertionError(f"MG-BiCGSTAB: {iters} iterations, {bare_iters}"
+                             f" without a preconditioner")
+    return launches
+
+
+def main_mg_mixed(data, f32_iters):
+    """The mixed multigrid (``tests/test_twolevel_mixed.py:57,75``): the
+    DIA system in f64 (kernel A's f64 instance on the fine level) with
+    ``coarse_dtype=torch.float32``; the coarse levels stored in f32 and
+    the casts at the transfer operators; CG to ``MIXED_TOL`` with the f64
+    true residual under it, and to ``DIA_TOL`` beside the f32 hierarchy's
+    iterations.  Returns the counted launches."""
+    A = gtt.Csr.from_data(data, dtype=np.float64)
+    mg, setup = timed_generate(Multigrid.build(coarse_dtype=torch.float32),
+                               A)
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=DEV)
+    C = mg.cycle_operator()
+
+    def solve(tol):
+        return Cg.solve(A, b, criteria=Iteration(2000) | ResidualNorm(tol),
+                        preconditioner=C)
+
+    res, seconds, launches = counted(lambda: solve(MIXED_TOL))
+    fields = mg_solve_fields(A, res, seconds, launches, b)
+    loose = solve(DIA_TOL)
+    first = mg.levels[0]
+    casts = (first.prolong.out_dtype, first.restrict.out_dtype)
+    say("main_mg_mixed", n=A.shape[0], strategy=A.strategy,
+        dtype=str(A.dtype), generate=setup, levels=mg_levels(mg),
+        casts=[str(t) for t in casts], **fields,
+        iterations_to_dia_tol=int(loose.iterations[0]),
+        f32_hierarchy_iterations=f32_iters)
+    coarse = {lvl.coarse_op.dtype for lvl in mg.levels}
+    if (A.strategy != "banded" or first.fine_op.dtype != torch.float64
+            or coarse != {torch.float32}
+            or casts != (torch.float64, torch.float32)):
+        raise AssertionError(f"mixed MG: layout {A.strategy}, coarse "
+                             f"{coarse}, casts {casts}")
+    check_solve("mixed MG-CG", res, launches, fields["true_rel_residual"],
+                MIXED_TOL, ["dia_spmv"])
+    return launches
+
+
+def main_ir_df64(A):
+    """``ir_df64`` on the DIA system (f32, b = ones, ``IR_DF64_SWEEPS``
+    sweeps) with ``test_df64.py``'s inner solve, CG to ``[Iteration(200),
+    ResidualNorm(1e-6)]``: the f64 true residual of the df64 iterate
+    under ``IR_DF64_LIMIT``.  Returns the counted launches."""
+    b = torch.ones(A.shape[0], dtype=torch.float32, device=DEV)
+    inner_iters = []
+
+    def inner(A, r):
+        res = Cg.solve(A, r, criteria=[Iteration(200), ResidualNorm(1e-6)])
+        inner_iters.append(int(res.iterations[0]))
+        return res.x.reshape(-1)
+
+    ((xh, xl), hist), seconds, launches = counted(
+        lambda: ir_df64(A, b, inner, iterations=IR_DF64_SWEEPS))
+    sweeps = list(inner_iters)
+    true_rel = true_rel_residual(A, b, xh.double() + xl.double())
+    single = true_rel_residual(A, b, inner(A, b))
+    say("main_ir_df64", n=A.shape[0], strategy=A.strategy,
+        sweeps=IR_DF64_SWEEPS, history=hist.tolist(), inner_iterations=sweeps,
+        seconds=seconds, true_rel_residual=true_rel,
+        single_f32_solve_true_rel_residual=single, launches=seen(launches))
+    if not (np.isfinite(true_rel) and true_rel < IR_DF64_LIMIT):
+        raise AssertionError(f"ir_df64: true relative residual "
+                             f"{true_rel:.3e} >= {IR_DF64_LIMIT}")
+    if launches["dia_spmv"] <= 0:
+        raise AssertionError("ir_df64: the inner CG never launched kernel A")
+    return launches
+
+
+def main_ir_dc64(data):
+    """``ir_dc64`` on the complex banded system A = P (1 + 0.02i) + 0.5i
+    I of the DIA stencil (``shifted``), 5 sweeps: the inner solve is
+    complex64 BiCGSTAB through the banded ``Csr`` (kernel A-c) to
+    ``ResidualNorm(1e-5)``; the complex128 true residual under
+    ``IR_DC64_LIMIT``.  Returns the counted launches."""
+    from ginkgo_tpu_torch.ops.spmv_banded import unblock_diag_values
+    A = gtt.Csr.from_data(shifted(data), dtype=np.complex64)
+    assert A.strategy == "banded" and A.tail_rows is None
+    dv = unblock_diag_values(A.diag_values, dict(A.band_meta))
+    dv_re, dv_im = dv.real.contiguous(), dv.imag.contiguous()
+    n = A.shape[0]
+    b = dc_from_c64(np.ones(n, np.complex128), device=DEV)
+    inner_iters = []
+
+    def inner(r_re, r_im):
+        res = Bicgstab.solve(A, torch.complex(r_re, r_im),
+                             criteria=Iteration(2000) | ResidualNorm(1e-5))
+        inner_iters.append(int(res.iterations[0]))
+        return res.x.real.contiguous(), res.x.imag.contiguous()
+
+    (x, hist), seconds, launches = counted(lambda: ir_dc64(
+        A.diag_offsets, dv_re, dv_im, n, b, inner, iterations=IR_DC64_SWEEPS))
+    x128 = torch.from_numpy(dc_to_c128(x)).to(DEV)
+    true_rel = true_rel_residual(
+        A, torch.ones(n, dtype=torch.complex128, device=DEV), x128)
+    say("main_ir_dc64", n=n, strategy=A.strategy, dtype=str(A.dtype),
+        sweeps=IR_DC64_SWEEPS, history=hist.tolist(),
+        inner_iterations=inner_iters, seconds=seconds,
+        true_rel_residual=true_rel, launches=seen(launches))
+    if not (np.isfinite(true_rel) and true_rel < IR_DC64_LIMIT):
+        raise AssertionError(f"ir_dc64: true relative residual "
+                             f"{true_rel:.3e} >= {IR_DC64_LIMIT}")
+    if launches["dia_spmv_complex"] <= 0:
+        raise AssertionError("ir_dc64: the inner BiCGSTAB never launched "
+                             "kernel A-c")
+    return launches
+
+
+def small_mg_match_cpu():
+    """f64 on the card against the port's CPU run: the ``dia`` and
+    ``packed`` matchers' roots index for index on ``stencil_3d(8,
+    points=27)`` and the FEM matrix at n = 2,048 (``dia`` declines the
+    FEM matrix on both); MG-CG with the four cycles on ``stencil_3d(12,
+    points=27)``: equal iterations, x to 1e-10."""
+    cpu = torch.device("cpu")
+    for label, data in (("stencil", stencil_3d(8, points=27)),
+                        ("fem", build_matrix_data({"fem": 2048,
+                                                   "offscale": 1.2}))):
+        d = data.canonical()
+        roots = {}
+        for name, fn in (("dia", pgm_dia.aggregate_dia),
+                         ("packed", pgm_packed.aggregate_packed)):
+            want, got = fn(d, device=cpu), fn(d, device=DEV)
+            if (want is None) != (got is None) or (
+                    want is not None and not np.array_equal(got, want)):
+                raise AssertionError(f"small {label}: the card's {name} "
+                                     f"root differs from the CPU's")
+            roots[name] = ("declined" if want is None
+                           else int(np.unique(want).size))
+        say("small_mg_match", matrix=label, n=d.shape[0], roots=roots)
+    data = stencil_3d(12, points=27)
+    b = torch.from_numpy(np.random.default_rng(6).standard_normal(1728))
+    for cycle in ("v", "w", "f", "k"):
+        out = []
+        for dev in (DEV, cpu):
+            A = gtt.Csr.from_data(data, dtype=np.float64, device=dev)
+            mg = Multigrid.build(cycle=cycle).generate(A)
+            res = Cg.solve(A, b.to(dev), criteria=Iteration(500)
+                           | ResidualNorm(1e-10),
+                           preconditioner=mg.cycle_operator())
+            out.append((int(res.iterations[0]), bool(res.converged.all()),
+                        res.x.cpu()))
+        (ig, cg, xg), (ic, cc, xc) = out
+        err = rel_err(xg, xc)[0]
+        say("small_mg_match", cycle=cycle, iterations=[ig, ic], rel_err=err)
+        if not (cg and cc and ig == ic and err <= 1e-10):
+            raise AssertionError(f"small MG-CG ({cycle}): card {ig} "
+                                 f"iterations, CPU {ic}, x rel err {err:.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -3047,11 +3393,13 @@ def main() -> int:
     runs.append(main_isai_general(Ai, bare_iters))
     runs += main_sor(Ai, bare_iters, ilu_iters)
     phase_rcm_case(Ai)
+    runs.append(main_mg_packed(Ai, bare_iters, ilu_iters))
 
     # the DIA ParILUT/ParICT path and the adaptive block Jacobi at n =
     # 262,144 (the DIA loop's universe slab: 161 x n f32 for ParILUT)
     t0 = time.perf_counter()
-    Ad = gtt.Csr.from_data(stencil_3d(DIA_NX, points=27), dtype=np.float32)
+    d_dia = stencil_3d(DIA_NX, points=27)
+    Ad = gtt.Csr.from_data(d_dia, dtype=np.float32)
     torch.cuda.synchronize()
     say("setup_dia", seconds=time.perf_counter() - t0, strategy=Ad.strategy,
         n=Ad.shape[0], nnz=Ad.nnz)
@@ -3061,8 +3409,16 @@ def main() -> int:
     runs.append(main_block_jacobi("main_block_jacobi_adaptive", Ad,
                                   storage_optimization="auto"))
     runs.append(main_isai_spd(Ad))
+    # multigrid and the precision tiers on the DIA system
+    mg_runs, mg_iters = main_mg_dia(Ad)
+    runs += mg_runs
+    runs.append(main_ir_df64(Ad))
     del Ad
+    runs.append(main_mg_mixed(d_dia, mg_iters))
+    runs.append(main_ir_dc64(d_dia))
+    del d_dia
     small_dia_and_block_jacobi_match_cpu()
+    small_mg_match_cpu()
 
     # sparse direct solvers and sparse products
     runs += main_direct(stencil_2d(DIRECT_NX, points=5))

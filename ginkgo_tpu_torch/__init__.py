@@ -16,6 +16,8 @@ from .base.mtx_io import read_mtx, write_mtx, read_binary, write_binary
 from .base.linop import LinOp
 from .base.composition import (Composition, Combination, Perturbation,
                                BlockOperator)
+from .base.precision import (precision_dispatch,
+                             precision_dispatch_real_complex, version_info)
 from .matrix.dense import Dense
 from .matrix.csr import Csr
 from .matrix.coo import Coo
@@ -32,3 +34,18 @@ from .matrix.fft import Fft, Fft2, Fft3, FftNd
 from .device import resolve_device
 
 __version__ = "0.1.0"
+
+# umbrella namespaces (include/ginkgo/ginkgo.hpp analog) — imported lazily
+# to keep `import ginkgo_tpu_torch` light; `gtt.solver.Cg` etc. work on
+# first touch.  The distributed, batch and config tiers join as they land.
+_SUBMODULES = ("solver", "preconditioner", "factorization", "multigrid",
+               "reorder", "log", "stop", "utils", "benchmark")
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        import importlib
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

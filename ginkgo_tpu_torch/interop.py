@@ -5,7 +5,8 @@ takes the arrays and static fields of a ``Csr`` planned elsewhere (for
 instance ``ginkgo_tpu``'s, read out as numpy) and returns the port's
 ``Csr`` holding the same layout, without planning again.  Both packages
 then run on identical operators.  ``factorization_from_arrays`` does the
-same for the two factors of an incomplete factorization.
+same for the two factors of an incomplete factorization, and
+``multigrid_from_arrays`` for a whole multigrid hierarchy.
 """
 
 from __future__ import annotations
@@ -63,3 +64,44 @@ def factorization_from_arrays(l_factor, u_factor, symmetric=False,
     L = csr_from_arrays(*l_factor, device=device, index_dtype=index_dtype)
     U = csr_from_arrays(*u_factor, device=device, index_dtype=index_dtype)
     return Factorization(l_factor=L, u_factor=U, symmetric=symmetric)
+
+
+def multigrid_from_arrays(fine, levels, coarsest_inv, inv_diags, *,
+                          cycle="v", criteria=None, device=None,
+                          index_dtype=torch.int32):
+    """A multigrid hierarchy generated elsewhere, without aggregating
+    again: ``fine`` is the top operator's ``(arrays, static)``; each entry
+    of ``levels`` a dict with ``agg`` (the aggregate id of each fine row),
+    ``coarse`` (the Galerkin operator's ``(arrays, static)``) and
+    ``prolong``/``restrict`` (the transfer operators' ``(arrays, static)``,
+    absent or None where the level gathers and sums by ``agg``);
+    ``coarsest_inv`` the coarsest level's dense inverse and ``inv_diags``
+    each level's damped-Jacobi inverse diagonal, all numpy.  Returns the
+    port's ``MultigridOp`` over the same operators; level l + 1's fine
+    operator is level l's coarse one, as in a generated hierarchy."""
+    from .multigrid.pgm import AggProlong, AggRestrict, MultigridLevel
+    from .solver.multigrid import (MultigridOp, _DampedJacobiSmoother,
+                                   _DenseCoarseSolver)
+    device = resolve_device(device)
+
+    def csr(pair):
+        return None if pair is None else csr_from_arrays(
+            *pair, device=device, index_dtype=index_dtype)
+
+    def put(arr):
+        return torch.from_numpy(np.array(arr)).to(device)
+
+    op = csr(fine)
+    out, smoothers = [], []
+    for lvl, inv_diag in zip(levels, inv_diags):
+        coarse = csr(lvl["coarse"])
+        agg = put(np.asarray(lvl["agg"], np.int64))
+        nc = coarse.shape[0]
+        out.append(MultigridLevel(
+            fine_op=op, coarse_op=coarse, route="carried",
+            prolong=AggProlong(agg, nc, op=csr(lvl.get("prolong"))),
+            restrict=AggRestrict(agg, nc, op=csr(lvl.get("restrict")))))
+        smoothers.append(_DampedJacobiSmoother(put(inv_diag), op))
+        op = coarse
+    return MultigridOp(out, smoothers, _DenseCoarseSolver(put(coarsest_inv)),
+                       criteria=criteria, cycle=cycle)

@@ -8,6 +8,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -41,7 +42,13 @@ def test_import_loads_no_jax():
             "ginkgo_tpu_torch.factorization.direct, "
             "ginkgo_tpu_torch.solver.direct, "
             "ginkgo_tpu_torch.preconditioner.isai, "
-            "ginkgo_tpu_torch.preconditioner.sor; "
+            "ginkgo_tpu_torch.preconditioner.sor, "
+            "ginkgo_tpu_torch.multigrid, ginkgo_tpu_torch.multigrid.pgm_dia, "
+            "ginkgo_tpu_torch.multigrid.pgm_packed, "
+            "ginkgo_tpu_torch.solver.multigrid, "
+            "ginkgo_tpu_torch.base.precision, "
+            "ginkgo_tpu_torch.base.accessor, ginkgo_tpu_torch.ops.df64, "
+            "ginkgo_tpu_torch.ops.dc64; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ginkgo_tpu' "
             "or m.startswith('ginkgo_tpu.')]; print(bad); "
@@ -88,8 +95,18 @@ def test_entry_points_default_to_cuda(monkeypatch):
         csr_from_arrays({}, {"shape": d.shape})
     from ginkgo_tpu_torch.factorization import Lu
     from ginkgo_tpu_torch.ops.spgemm import spgemm_data
+    from ginkgo_tpu_torch.base.accessor import (ReducedRowMajor,
+                                                ScaledReducedRowMajor)
+    from ginkgo_tpu_torch.multigrid import Pgm
+    from ginkgo_tpu_torch.ops.dc64 import dc_from_c64
     from ginkgo_tpu_torch.preconditioner import Isai, Sor
+    from ginkgo_tpu_torch.solver import Multigrid
     for entry in (lambda: gtt.Diagonal.from_data(d),
+                  lambda: Pgm().generate(d),
+                  lambda: Multigrid.build().generate(d),
+                  lambda: ReducedRowMajor.create((2, 2), torch.float16),
+                  lambda: ScaledReducedRowMajor.create((2, 2)),
+                  lambda: dc_from_c64(np.ones(3, np.complex64)),
                   lambda: Lu().generate(d), lambda: Isai().generate(d),
                   lambda: Sor().generate(d),
                   lambda: spgemm_data(d, d, numeric="device")):
