@@ -181,6 +181,31 @@ exits non-zero:
    aggregates of at most 8 rows; V-cycle-preconditioned BiCGSTAB to
    ``ResidualNorm(1e-5)`` in fewer iterations than the bare solve's,
    beside ILU's;
+18p. main path, autodiff (after 18a): ``make_differentiable_solve`` of
+   Jacobi-CG on the nx=160 system (f32, ``SOLVE_TOL``), loss ||x||^2,
+   forward and adjoint solves counted (kernel A), gradients to b and to
+   the banded diagonals; grad_b against an independent solve of the
+   adjoint system and its f64 residual; ``Csr.conj_transpose`` timed;
+   then the f64 central-difference check along a seeded symmetric
+   direction of the diagonals of ``stencil_3d(FD_NX, points=27)``;
+18q. ``config_solve``: ``parse_json`` of a Jacobi-CG config generated on
+   the same system takes the main path's iterations under a
+   ``Convergence`` logger, with a ``ProfilerHook`` summary; a second
+   solve inside ``trace_to`` writes a Chrome trace that names kernel A
+   as often as its wrapper counted;
+18r. ``utils_card``: ``checkpoint.save``/``load`` of the banded ``Csr``
+   (applied bit for bit equal), ``serialize_solve``/``load_solve`` of
+   the Jacobi-CG (x bit for bit the direct solve's), ``DeviceTimer``
+   and ``topology()``;
+18s. the batch tier (after 18l): ``BatchCg`` (f32, 1e-6) on 65,536
+   tridiagonal systems of 32 rows and 8,192 of 128 (``BATCH_CG_SHAPES``),
+   then block-Jacobi ``BatchBicgstab`` (f32, 1e-5) on 65,536 scaled
+   24-row SPD systems and, at 8,192, through ``BatchEll`` and
+   ``BatchDense`` with x against the ``BatchCsr``'s: ms a solve,
+   systems/s, iterations, every system's f64 true residual under
+   ``BATCH_TRUE_LIMIT``, one solve under ``torch.profiler``; then
+   ``batch_match``: a small f64 batch on the card and on the host, equal
+   iterations a lane and x to 1e-12;
 19. the complex path at full width: ``Csr.from_data(..., dtype=
    np.complex64)`` of A = P (1 + 0.02i) + 0.5i I (P the nx=160 stencil,
    ``banded`` layout), of the Hermitian H = P + 1.02 I + 0.02i (U - U^T)
@@ -218,6 +243,7 @@ line is ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import statistics
@@ -259,11 +285,20 @@ from ginkgo_tpu_torch.solver import gmres as gmres_mod
 from ginkgo_tpu_torch.stop import Iteration, ResidualNorm
 from ginkgo_tpu_torch.ops.tri_inv import batched_lowtri_inverse
 from ginkgo_tpu_torch.utils import stagetimer
-from ginkgo_tpu_torch.utils.generators import (permute_locally,
+from ginkgo_tpu_torch.utils.generators import (generate_random_matrix,
+                                               make_spd, permute_locally,
                                                random_banded,
                                                random_lower_factor,
                                                stencil_2d, stencil_3d,
                                                symmetric_part)
+from ginkgo_tpu_torch import batch as tbatch
+from ginkgo_tpu_torch.autodiff import make_differentiable_solve
+from ginkgo_tpu_torch.config import parse_json
+from ginkgo_tpu_torch.log import (Convergence, ProfilerHook, capture,
+                                  trace_to)
+from ginkgo_tpu_torch.solver import cg as cg_mod
+from ginkgo_tpu_torch.utils import DeviceTimer, checkpoint, topology
+from ginkgo_tpu_torch.utils.export import load_solve, serialize_solve
 
 # H100 SXM data sheet: memory rate
 # and the non-tensor-core f32 rate the kernels' multiply-adds run at
@@ -389,6 +424,30 @@ IR_DF64_SWEEPS = 4
 IR_DF64_LIMIT = 5e-11
 IR_DC64_SWEEPS = 5
 IR_DC64_LIMIT = 1e-11
+# the batch tier: BatchCg (f32, tolerance 1e-6) on tridiagonal SPD systems
+# -1, 2 + s, -1 with s uniform in [0.1, 1.0], at the JAX package's own batch
+# case shapes (BENCHMARKS.md, "Batch solver"), right-hand sides drawn from
+# a seeded normal as the repo's batched-solver example draws them; then
+# block-Jacobi BatchBicgstab (f32, 1e-5) on tools/tpu_smoke.py's 24-row
+# SPD pattern with seeded scales, its BatchEll and BatchDense at 8,192
+# systems; the f64 true residual of every system held under
+# BATCH_TRUE_LIMIT, and BatchEll's/BatchDense's x against BatchCsr's,
+# relative to max |x|, under BATCH_FORMAT_TOL
+BATCH_CG_SHAPES = ((65536, 32), (8192, 128))
+BATCH_CG_TOL = 1e-6
+BATCH_BICGSTAB_SYSTEMS = 65536
+BATCH_FORMAT_SYSTEMS = 8192
+BATCH_BICGSTAB_TOL = 1e-5
+BATCH_TRUE_LIMIT = 1e-5
+BATCH_FORMAT_TOL = 1e-4
+BATCH_REPS = 5
+# the differentiable CG's central-difference check: f64 on the nx=32
+# 27-point stencil, plain CG to 1e-12, step FD_STEP along a seeded
+# positive symmetric direction of the diagonals, held to FD_TOL relative
+# (on the CPU the error is 6e-9 at this step and falls as its square)
+FD_NX = 32
+FD_STEP = 5e-7
+FD_TOL = 1e-6
 DEV = torch.device("cuda")
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 1e-5,
        torch.float16: 1e-5, torch.complex64: 1e-5, torch.complex128: 1e-12}
@@ -3274,6 +3333,364 @@ def small_mg_match_cpu():
                                  f"iterations, CPU {ic}, x rel err {err:.3e}")
 
 
+# -- the batch tier, autodiff, config and the utilities ------------------------------
+def tridiagonal(n):
+    r = np.arange(n)
+    rows = np.concatenate([r, r[1:], r[:-1]])
+    cols = np.concatenate([r, r[1:] - 1, r[:-1] + 1])
+    return gtt.MatrixData((n, n), rows, cols,
+                          np.ones(rows.size)).canonical()
+
+
+def timed_batch_solve(solver, A, b):
+    """One warm solve, then ``BATCH_REPS`` timed ones (host clock around
+    synchronised solves): (the last result, ms a solve)."""
+    res = solver.solve(A, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BATCH_REPS):
+        res = solver.solve(A, b)
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3 / BATCH_REPS
+
+
+def batch_true_residual(A, x, b):
+    """Each system's ||b - A x|| / ||b|| in f64, by a scatter over the
+    BatchCsr's entries (not the batch apply)."""
+    k = A.nnz
+    rows, cols = A.row_idx[:k].long(), A.col_idx[:k].long()
+    x64, b64 = x.double(), b.double()
+    y = torch.zeros_like(x64)
+    y.index_add_(1, rows, A.values[:, :k].double() * x64[:, cols])
+    return (b64 - y).norm(dim=1) / b64.norm(dim=1)
+
+
+def batch_fields(res, ms, nb, true_rel):
+    return dict(ms_per_solve=ms, systems_per_s=nb / (ms * 1e-3),
+                iterations_min=int(res.iterations.min()),
+                iterations_max=int(res.iterations.max()),
+                all_converged=bool(res.converged.all()),
+                any_stagnated=bool(res.stagnated.any()),
+                max_true_rel_residual=float(true_rel.max()))
+
+
+def check_batch(label, res, true_rel):
+    if not bool(res.converged.all()):
+        bad = int((~res.converged).sum())
+        raise AssertionError(f"{label}: {bad} systems did not converge")
+    worst = float(true_rel.max())
+    if not (np.isfinite(worst) and worst <= BATCH_TRUE_LIMIT):
+        raise AssertionError(f"{label}: f64 true residual {worst:.3e} > "
+                             f"{BATCH_TRUE_LIMIT}")
+
+
+def main_batch_cg():
+    """BatchCg (f32, ``BATCH_CG_TOL``) at each of ``BATCH_CG_SHAPES``:
+    ms a solve, systems/s, iterations, every system's f64 true residual,
+    and one solve under ``torch.profiler`` (launches, host ms against the
+    card's busy ms)."""
+    for nb, n in BATCH_CG_SHAPES:
+        d = tridiagonal(n)
+        s = np.random.default_rng(n).uniform(0.1, 1.0, nb)
+        vals = np.where(d.row_idx == d.col_idx, 2.0 + s[:, None],
+                        -1.0).astype(np.float32)
+        t0 = time.perf_counter()
+        A = tbatch.BatchCsr.from_data((d, vals))
+        b = torch.from_numpy(np.random.default_rng(n + 1).standard_normal(
+            (nb, n)).astype(np.float32)).to(DEV)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        solver = tbatch.BatchCg(max_iterations=500, tolerance=BATCH_CG_TOL)
+        res, ms = timed_batch_solve(solver, A, b)
+        true_rel = batch_true_residual(A, res.x, b)
+        prof = profile_ms(lambda: solver.solve(A, b))
+        label = f"main_batch_cg_{nb}x{n}"
+        say(label, systems=nb, n=n, nnz=A.nnz, dtype="float32",
+            tolerance=BATCH_CG_TOL, setup_s=setup_s,
+            **batch_fields(res, ms, nb, true_rel), profile=prof)
+        check_batch(label, res, true_rel)
+
+
+def batch_bicgstab_pattern():
+    """``tools/tpu_smoke.py``'s batch pattern, canonical (the batch's
+    values are in its entry order)."""
+    return make_spd(generate_random_matrix(24, 24, nonzeros_per_row=(2, 5),
+                                           seed=1), shift=1.5).canonical()
+
+
+def main_batch_bicgstab():
+    """Block-Jacobi (4) BatchBicgstab (f32, ``BATCH_BICGSTAB_TOL``) on
+    ``BATCH_BICGSTAB_SYSTEMS`` seeded scales of the 24-row SPD pattern,
+    then the first ``BATCH_FORMAT_SYSTEMS`` through BatchCsr, BatchEll
+    and BatchDense, x held against the BatchCsr's."""
+    pattern = batch_bicgstab_pattern()
+    nb = BATCH_BICGSTAB_SYSTEMS
+    scales = np.random.default_rng(24).uniform(0.5, 2.0, nb)
+    vals = (scales[:, None] * pattern.values[None, :]).astype(np.float32)
+    solver = tbatch.BatchBicgstab(
+        max_iterations=200, tolerance=BATCH_BICGSTAB_TOL,
+        preconditioner=tbatch.BatchJacobi(max_block_size=4))
+    A = tbatch.BatchCsr.from_data((pattern, vals))
+    b = torch.ones((nb, 24), dtype=torch.float32, device=DEV)
+    res, ms = timed_batch_solve(solver, A, b)
+    true_rel = batch_true_residual(A, res.x, b)
+    prof = profile_ms(lambda: solver.solve(A, b))
+    say("main_batch_bicgstab", systems=nb, n=24, nnz=A.nnz,
+        dtype="float32", block_size=4, tolerance=BATCH_BICGSTAB_TOL,
+        **batch_fields(res, ms, nb, true_rel), profile=prof)
+    check_batch("main_batch_bicgstab", res, true_rel)
+    m = BATCH_FORMAT_SYSTEMS
+    t0 = time.perf_counter()
+    sub = tbatch.BatchCsr.from_data((pattern, vals[:m]))
+    items = [gtt.MatrixData(pattern.shape, pattern.row_idx, pattern.col_idx,
+                            v) for v in vals[:m]]
+    formats = {"BatchCsr": sub,
+               "BatchEll": tbatch.BatchEll.from_data(items),
+               "BatchDense": tbatch.BatchDense(sub.to_dense_batch())}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b = b[:m]
+    out = {}
+    for name, op in formats.items():
+        res, ms = timed_batch_solve(solver, op, b)
+        out[name] = (res, batch_fields(res, ms, m,
+                                       batch_true_residual(sub, res.x, b)))
+    x_ref = out["BatchCsr"][0].x
+    errs = {name: rel_err(res.x, x_ref)[0] for name, (res, _) in out.items()}
+    say("main_batch_formats", systems=m, setup_s=setup_s,
+        x_rel_err_vs_csr=errs,
+        **{name: fields for name, (_, fields) in out.items()})
+    for name, (res, _) in out.items():
+        check_batch(f"batch_{name}", res,
+                    batch_true_residual(sub, res.x, b))
+        if not errs[name] <= BATCH_FORMAT_TOL:
+            raise AssertionError(f"{name}: x differs from BatchCsr's by "
+                                 f"{errs[name]:.3e}")
+
+
+def batch_match():
+    """A small f64 batch (16 systems, k = 2) on the card and on the host:
+    equal iterations and convergence a lane, x to 1e-12."""
+    pattern = make_spd(generate_random_matrix(24, 24, nonzeros_per_row=(2, 5),
+                                              seed=0), shift=1.5).canonical()
+    rng = np.random.default_rng(2)
+    vals = pattern.values[None, :] * rng.uniform(0.5, 2.0, (16, 1))
+    b = rng.standard_normal((16, 24, 2))
+    for label, make, block in (("cg_block4", tbatch.BatchCg, 4),
+                               ("bicgstab_scalar", tbatch.BatchBicgstab, 1)):
+        out = []
+        for dev in (DEV, torch.device("cpu")):
+            A = tbatch.BatchCsr.from_data((pattern, vals), device=dev)
+            res = make(max_iterations=300, tolerance=1e-10,
+                       preconditioner=tbatch.BatchJacobi(block)).solve(
+                A, torch.from_numpy(b).to(dev))
+            out.append((res.iterations.cpu(), res.converged.cpu(),
+                        res.x.cpu()))
+        (ig, cg, xg), (ic, cc, xc) = out
+        err = rel_err(xg, xc)[0]
+        say("batch_match", case=label, iterations_min=int(ig.min()),
+            iterations_max=int(ig.max()),
+            equal_iterations=bool(torch.equal(ig, ic)), x_rel_err=err)
+        if not (bool(cg.all()) and torch.equal(ig, ic)
+                and torch.equal(cg, cc) and err <= 1e-12):
+            raise AssertionError(f"batch {label}: the card and the host "
+                                 f"differ ({ig.tolist()} / {ic.tolist()}, "
+                                 f"x {err:.3e})")
+
+
+def fd_direction(d, A):
+    """A seeded symmetric direction on ``d``'s pattern, positive (so the
+    directional derivative does not cancel), in A's banded layout."""
+    lo = np.minimum(d.row_idx, d.col_idx)
+    hi = np.maximum(d.row_idx, d.col_idx)
+    keys, inv = np.unique(lo * d.shape[0] + hi, return_inverse=True)
+    e = np.random.default_rng(7).uniform(0.5, 1.5, keys.size)[inv]
+    E = gtt.Csr.from_data(gtt.MatrixData(d.shape, d.row_idx, d.col_idx, e),
+                          dtype=np.float64)
+    if E.diag_offsets != A.diag_offsets or E.band_meta != A.band_meta:
+        raise AssertionError("the direction's band layout is not A's")
+    return E.diag_values
+
+
+def autodiff_fd_check():
+    """<d||x||^2/d diag_values, V> against central differences along V, in
+    f64 on ``stencil_3d(FD_NX, points=27)``, b = ones, plain CG."""
+    d = stencil_3d(FD_NX, points=27)
+    A = gtt.Csr.from_data(d, dtype=np.float64)
+    crit = Iteration(5000) | ResidualNorm(1e-12)
+    V = fd_direction(d, A)
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=DEV)
+    Ag = copy.copy(A)
+    Ag.diag_values = A.diag_values.detach().clone().requires_grad_(True)
+    solve = make_differentiable_solve(cg_mod.solve, criteria=crit)
+    (solve(Ag, b) ** 2).sum().backward()
+    directional = float((Ag.diag_values.grad * V).sum())
+
+    def loss(t):
+        At = copy.copy(A)
+        At.diag_values = A.diag_values + t * V
+        return float((cg_mod.solve(At, b, criteria=crit).x ** 2).sum())
+
+    fd = (loss(FD_STEP) - loss(-FD_STEP)) / (2 * FD_STEP)
+    return dict(n=A.shape[0], step=FD_STEP, directional=directional, fd=fd,
+                rel_err=abs(directional - fd) / abs(fd))
+
+
+def main_autodiff(A):
+    """The differentiable Jacobi-CG on the banded main-path system (f32,
+    ``SOLVE_TOL``), loss ||x||^2: gradients to b and to A's value tensors
+    (the forward and adjoint solves counted), grad_b against an
+    independent solve of the adjoint system (A is symmetric) and its
+    residual in f64, then the f64 central-difference check."""
+    crit = Iteration(2000) | ResidualNorm(SOLVE_TOL)
+    solve = make_differentiable_solve(cg_mod.solve, criteria=crit,
+                                      preconditioner=Jacobi())
+    fields = [k for k in ("diag_values", "tail_vals")
+              if getattr(A, k) is not None]
+    Ag = copy.copy(A)
+    for name in fields:
+        setattr(Ag, name, getattr(A, name).detach().requires_grad_(True))
+    b = torch.ones(A.shape[0], dtype=torch.float32, device=DEV,
+                   requires_grad=True)
+    reset_counters()
+    t0 = time.perf_counter()
+    x = solve(Ag, b)
+    (x ** 2).sum().backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    grad_b = b.grad
+    lam = Cg.solve(A, 2 * x.detach(), criteria=crit,
+                   preconditioner=Jacobi()).x
+    grads = {name: float(getattr(Ag, name).grad.abs().max())
+             for name in fields}
+    fd = autodiff_fd_check()
+    report = dict(
+        n=A.shape[0], strategy=A.strategy, fields=fields,
+        forward_backward_s=seconds, launches=seen(launches),
+        grad_max_abs=dict(grads, b=float(grad_b.abs().max())),
+        grad_b_vs_adjoint_solve=rel_err(grad_b, lam)[0],
+        adjoint_true_rel_residual=true_rel_residual(A, 2 * x.detach(),
+                                                    grad_b),
+        conj_transpose_ms=time_ms(lambda: A.conj_transpose(), 5),
+        fd_check=fd)
+    say("main_autodiff", **report)
+    if launches["dia_spmv"] <= 0:
+        raise AssertionError("autodiff: the solves never launched dia_spmv")
+    if not all(np.isfinite(v) and v > 0 for v in grads.values()):
+        raise AssertionError(f"autodiff: gradients {grads}")
+    if not report["grad_b_vs_adjoint_solve"] <= 1e-6:
+        raise AssertionError("autodiff: grad_b differs from the adjoint "
+                             "solve")
+    if not report["adjoint_true_rel_residual"] <= TRUE_RESIDUAL_LIMIT:
+        raise AssertionError("autodiff: grad_b misses the adjoint system")
+    if not fd["rel_err"] <= FD_TOL:
+        raise AssertionError(f"autodiff: central differences {fd}")
+    return launches
+
+
+def trace_kernel_events(logdir, needle):
+    """(events, events whose name holds ``needle``) of the one Chrome trace
+    ``trace_to`` wrote into ``logdir``."""
+    files = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"trace_to wrote {files}")
+    with open(os.path.join(logdir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    hits = [ev for ev in events if ev.get("cat") == "kernel"
+            and needle in ev.get("name", "")]
+    return len(events), len(hits)
+
+
+def config_solve(A, banded_iters):
+    """``parse_json`` of a Jacobi-CG config generated on the banded
+    system: the main path's iterations under a ``Convergence`` logger, a
+    ``ProfilerHook`` summary, and a ``trace_to`` trace of a second solve
+    naming kernel A as often as its wrapper counted."""
+    cfg = json.dumps({
+        "type": "solver::Cg",
+        "preconditioner": {"type": "preconditioner::Jacobi"},
+        "criteria": [{"type": "stop::Iteration", "max_iters": 2000},
+                     {"type": "stop::ResidualNorm",
+                      "reduction_factor": SOLVE_TOL}]})
+    solver = parse_json(cfg).generate(A)
+    b = torch.ones(A.shape[0], dtype=torch.float32, device=DEV)
+    with capture(Convergence(), ProfilerHook()) as (conv, hook):
+        reset_counters()
+        t0 = time.perf_counter()
+        solver.apply(b)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counters()
+    iters = conv.num_iterations
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counters()
+        t0 = time.perf_counter()
+        with trace_to(tmp):
+            solver.apply(b)
+            torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+        traced = read_counters()
+        events, kernel_a = trace_kernel_events(tmp, "dia_spmv_kernel")
+    say("config_solve", iterations=iters,
+        main_path_iterations=banded_iters, converged=conv.has_converged(),
+        solve_s=seconds, launches=seen(launches),
+        profiler_hook=hook.create_summary(), trace_events=events,
+        trace_kernel_a_events=kernel_a, traced_solve_s=traced_s,
+        traced_launches=seen(traced))
+    if iters != banded_iters or not conv.has_converged():
+        raise AssertionError(f"config: {iters} iterations, the main path "
+                             f"took {banded_iters}")
+    if kernel_a != traced["dia_spmv"] or kernel_a <= 0:
+        raise AssertionError(f"config: the trace names kernel A {kernel_a} "
+                             f"times, its wrapper counted "
+                             f"{traced['dia_spmv']}")
+    return [launches, traced]
+
+
+def utils_card(A):
+    """``checkpoint`` round trip of the banded Csr (applied bit for bit),
+    the exported Jacobi-CG against the direct solve, ``DeviceTimer`` and
+    ``topology()``."""
+    b = torch.ones(A.shape[0], dtype=torch.float32, device=DEV)
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "banded.pt")
+        t0 = time.perf_counter()
+        checkpoint.save(path, A)
+        report["save_s"] = time.perf_counter() - t0
+        report["file_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        B = checkpoint.load(path)
+        torch.cuda.synchronize()
+        report["load_s"] = time.perf_counter() - t0
+    same = (B.strategy == A.strategy and B.device == A.device
+            and torch.equal(B.apply(b), A.apply(b)))
+    del B
+    crit = Iteration(2000) | ResidualNorm(SOLVE_TOL)
+    t0 = time.perf_counter()
+    blob = serialize_solve(cg_mod.solve, A, torch.empty(
+        A.shape[0], dtype=torch.float32, device="meta"), criteria=crit,
+        preconditioner=Jacobi())
+    run = load_solve(blob)
+    report["export_s"] = time.perf_counter() - t0
+    report["export_bytes"] = len(blob)
+    del blob
+    x = run(A, b)
+    x_direct = Cg.solve(A, b, criteria=crit, preconditioner=Jacobi()).x
+    exported_same = torch.equal(x, x_direct)
+    timer = DeviceTimer()
+    timer.tic()
+    for _ in range(10):
+        A.apply(b)
+    report["device_timer_ms_per_apply"] = timer.toc() * 1e3 / 10
+    say("utils_card", checkpoint_apply_equal=same,
+        export_x_equal=exported_same, topology=topology(), **report)
+    if not (same and exported_same):
+        raise AssertionError(f"utils: checkpoint equal {same}, export "
+                             f"equal {exported_same}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
@@ -3376,6 +3793,9 @@ def main() -> int:
     small_ilut_match_cpu()
     small_gmres_match_cpu()
     runs.append(main_block_jacobi("main_block_jacobi", Ab, banded_iters))
+    runs.append(main_autodiff(Ab))
+    runs += config_solve(Ab, banded_iters)
+    utils_card(Ab)
     del Ap
     d_small = stencil_3d(SMALL_FORMAT_NX, points=27)
     A_small = gtt.Csr.from_data(d_small, dtype=np.float32)
@@ -3424,6 +3844,11 @@ def main() -> int:
     runs += main_direct(stencil_2d(DIRECT_NX, points=5))
     phase_spgemm()
     small_algebra_match_cpu()
+
+    # the batch tier (plain torch: no kernel of the port on its path)
+    main_batch_cg()
+    main_batch_bicgstab()
+    batch_match()
 
     # the complex path, complex64 at the full width: A = P (1 + 0.02i) +
     # 0.5i I on both layouts and the Hermitian H on the banded one

@@ -37,9 +37,10 @@ __version__ = "0.1.0"
 
 # umbrella namespaces (include/ginkgo/ginkgo.hpp analog) — imported lazily
 # to keep `import ginkgo_tpu_torch` light; `gtt.solver.Cg` etc. work on
-# first touch.  The distributed, batch and config tiers join as they land.
+# first touch.  The distributed tier joins when it lands.
 _SUBMODULES = ("solver", "preconditioner", "factorization", "multigrid",
-               "reorder", "log", "stop", "utils", "benchmark")
+               "reorder", "batch", "config", "log", "stop", "utils",
+               "benchmark")
 
 
 def __getattr__(name):

@@ -5,8 +5,9 @@ takes the arrays and static fields of a ``Csr`` planned elsewhere (for
 instance ``ginkgo_tpu``'s, read out as numpy) and returns the port's
 ``Csr`` holding the same layout, without planning again.  Both packages
 then run on identical operators.  ``factorization_from_arrays`` does the
-same for the two factors of an incomplete factorization, and
-``multigrid_from_arrays`` for a whole multigrid hierarchy.
+same for the two factors of an incomplete factorization,
+``multigrid_from_arrays`` for a whole multigrid hierarchy, and
+``batch_from_arrays`` for a batch matrix.
 """
 
 from __future__ import annotations
@@ -105,3 +106,29 @@ def multigrid_from_arrays(fine, levels, coarsest_inv, inv_diags, *,
         op = coarse
     return MultigridOp(out, smoothers, _DenseCoarseSolver(put(coarsest_inv)),
                        criteria=criteria, cycle=cycle)
+
+
+BATCH_ARRAYS = {"BatchCsr": (("row_idx", "col_idx", "row_ptr"), "values"),
+                "BatchEll": (("col_idx", "row_lengths"), "values")}
+
+
+def batch_from_arrays(kind: str, arrays: dict, static: dict, device=None,
+                      index_dtype=torch.int32):
+    """A ``BatchCsr`` or ``BatchEll`` (``kind``) stored elsewhere in the
+    same layout: ``arrays`` name -> numpy array (``BatchCsr``: row_idx,
+    col_idx, row_ptr, values (nb, nnz_stored); ``BatchEll``: col_idx,
+    row_lengths, values (nb, n, w)), ``static`` its ``shape`` and
+    ``nnz``.  The tensors are placed on ``device`` (``None``: the CUDA
+    device)."""
+    from . import batch
+    device = resolve_device(device)
+    index_names, value_name = BATCH_ARRAYS[kind]
+
+    def put(arr, dtype=None):
+        return torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)
+
+    kw = {name: put(arrays[name], index_dtype) for name in index_names}
+    return getattr(batch, kind)(
+        values=put(arrays[value_name]),
+        shape=tuple(int(s) for s in static["shape"]),
+        nnz=int(static["nnz"]), **kw)

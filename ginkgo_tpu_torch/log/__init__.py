@@ -1,4 +1,6 @@
-"""Observability (core/log analogs): the event bus."""
+"""Observability (core/log analogs): event bus + sinks + profiler hook."""
 
-from .logger import (Logger, add_logger, remove_logger,  # noqa: F401
-                     capture, dispatch, has_loggers)
+from .logger import (Logger, Stream, Record, Convergence,  # noqa: F401
+                     SolverProgress, PerformanceHint, add_logger,
+                     remove_logger, capture, dispatch, has_loggers)
+from .profiler_hook import ProfilerHook, annotate, trace_to  # noqa: F401

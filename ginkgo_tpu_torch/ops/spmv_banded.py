@@ -74,9 +74,14 @@ def plan_banded_layout(offsets, n, *, S=128, NB=4):
 
 
 def block_diag_values(diag_values, meta):
-    """(D, n) -> (G, D, S, 128) contiguous per-block chunks. Host/NumPy."""
+    """(D, n) -> (G, D, S, 128) contiguous per-block chunks: a numpy array
+    on the host, or a tensor on its own device."""
     D, n = diag_values.shape
     NSp, S, G = meta["NSp"], meta["S"], meta["G"]
+    if isinstance(diag_values, torch.Tensor):
+        dv = diag_values.new_zeros((D, NSp * LANES))
+        dv[:, :n] = diag_values
+        return dv.reshape(D, G, S, LANES).permute(1, 0, 2, 3).contiguous()
     dv = np.zeros((D, NSp * LANES), diag_values.dtype)
     dv[:, :n] = diag_values
     return np.ascontiguousarray(

@@ -22,7 +22,7 @@ import torch
 from ..base.linop import LinOp, as_multivector
 from ..matrix.dense import compute_norm2
 from ..matrix.identity import Identity
-from ..stop.criterion import Criterion, as_criterion, has_host_side
+from ..stop.criterion import Criterion, PerLane, as_criterion, has_host_side
 
 DEFAULT_TRIP_CAP = 100_000
 
@@ -126,8 +126,18 @@ def run_iteration_loop(step_fn, make_check_args, state0, criterion: Criterion,
     of every trip: the JAX package's ``lax.scan`` always runs ``cap`` trips
     and repeats the last norm once every column has stopped; this loop
     stops there and pads the (cap + 1, k) history with its last row.
+
+    A ``PerLane`` criterion splits the columns into lanes of its ``width``
+    (a batch of systems folded side by side): see :func:`_run_lanes`.
     """
     criterion = as_criterion(criterion)
+    if isinstance(criterion, PerLane):
+        if trace or has_host_side(criterion):
+            raise ValueError("per-lane solves take neither trace=True nor "
+                             "a host-side criterion")
+        return _run_lanes(step_fn, make_check_args, state0, criterion, b,
+                          r0_norm, b_norm, trip_cap, restart_fn,
+                          verify_retries), None
     crit_state = criterion.init(b, r0_norm, b_norm)
     cap = trip_cap if trip_cap is not None else (
         criterion.max_trip_count() or DEFAULT_TRIP_CAP)
@@ -202,6 +212,90 @@ def run_iteration_loop(step_fn, make_check_args, state0, criterion: Criterion,
     while oc["carry"]["it"] < cap and bool(oc["carry"]["active"].any()):
         oc = audit(oc)
     return dict(oc["carry"], stagnated=oc["stagnated"]), None
+
+
+def _run_lanes(step_fn, make_check_args, state0, criterion, b, r0_norm,
+               b_norm, trip_cap, restart_fn, verify_retries):
+    """``run_iteration_loop`` over lanes of ``criterion.width`` columns,
+    each lane as if it were solved alone (the JAX package's ``vmap`` of a
+    whole solve): the iteration count, the trip cap and the audit rounds
+    are per lane (one host read of the lanes still running a trip).  A
+    lane of one column takes its restarted state at every audit it joins,
+    as a one-column solve does (``single_col``); wider lanes take it for
+    their redone columns only."""
+    crit_state = criterion.init(b, r0_norm, b_norm)
+    cap = trip_cap if trip_cap is not None else (
+        criterion.max_trip_count() or DEFAULT_TRIP_CAP)
+    k, w = b.shape[1], criterion.width
+    lanes = k // w
+    dev = b.device
+
+    def cols(lane_values):
+        return lane_values.repeat_interleave(w)
+
+    def running(carry):
+        """(lanes,) lanes with an active column and trips left."""
+        return carry["active"].view(lanes, w).any(dim=1) & (carry["it"] < cap)
+
+    it0 = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    stop0, conv0, crit_state = criterion.check(
+        crit_state, make_check_args(state0, cols(it0)))
+    carry0 = dict(state=state0, crit=crit_state, it=it0, active=~stop0,
+                  converged=conv0,
+                  iters=torch.zeros((k,), dtype=torch.int32, device=dev))
+
+    def body(carry, run):
+        run_cols = cols(run)
+        moving = carry["active"] & run_cols
+        state = mask_cols(moving, step_fn(carry["state"], moving),
+                          carry["state"])
+        it = carry["it"] + run.to(torch.int32)
+        stop, conv, crit = criterion.check(
+            carry["crit"], make_check_args(state, cols(it)))
+        stop = stop & run_cols
+        return dict(state=state, crit=crit, it=it,
+                    active=carry["active"] & ~stop,
+                    converged=carry["converged"] | (moving & stop & conv),
+                    iters=carry["iters"] + moving.to(torch.int32))
+
+    def run_all(carry):
+        run = running(carry)
+        while bool(run.any()):
+            carry = body(carry, run)
+            run = running(carry)
+        return carry
+
+    if restart_fn is None:
+        return run_all(carry0)
+
+    def audit(oc, part):
+        """One audit round for the lanes of ``part``."""
+        c = run_all(oc["carry"])
+        part_cols = cols(part)
+        s2 = restart_fn(c["state"])
+        _, conv_t, crit_t = criterion.check(
+            c["crit"], make_check_args(s2, cols(c["it"])))
+        bogus = c["converged"] & ~conv_t & part_cols
+        out_of = cols(oc["audits"] >= verify_retries)
+        redo = bogus & ~out_of
+        take = part_cols if w == 1 else redo
+        c2 = dict(c, state=mask_cols(take, s2, c["state"]), crit=crit_t,
+                  active=torch.where(part_cols, redo, c["active"]),
+                  converged=c["converged"] & ~bogus)
+        return dict(carry=c2, stagnated=oc["stagnated"] | (bogus & out_of),
+                    audits=oc["audits"] + part.to(torch.int32))
+
+    oc = audit(dict(carry=carry0,
+                    stagnated=torch.zeros((k,), dtype=torch.bool,
+                                          device=dev),
+                    audits=torch.zeros((lanes,), dtype=torch.int32,
+                                       device=dev)),
+               torch.ones((lanes,), dtype=torch.bool, device=dev))
+    part = running(oc["carry"])
+    while bool(part.any()):
+        oc = audit(oc, part)
+        part = running(oc["carry"])
+    return dict(oc["carry"], stagnated=oc["stagnated"])
 
 
 def run_restarted_loop(inner_step, cycle_done, restart_fn, make_check_args,

@@ -75,8 +75,12 @@ class Iteration(Criterion):
 
     def check(self, state, args):
         k, device = _num_cols(args), _device_of(args)
-        stop = torch.full((k,), bool(args.iteration >= self.max_iters),
-                          device=device)
+        if isinstance(args.iteration, torch.Tensor):
+            # per-column counts (the lanes of a batch solve, ``PerLane``)
+            stop = args.iteration >= self.max_iters
+        else:
+            stop = torch.full((k,), bool(args.iteration >= self.max_iters),
+                              device=device)
         return stop, torch.zeros((k,), dtype=torch.bool, device=device), state
 
     def max_trip_count(self):
@@ -153,6 +157,8 @@ def has_host_side(crit) -> bool:
         return True
     if isinstance(crit, Combined):
         return any(has_host_side(c) for c in crit.criteria)
+    if isinstance(crit, PerLane):
+        return has_host_side(crit.criterion)
     return False
 
 
@@ -183,6 +189,27 @@ class Combined(Criterion):
         counts = [c.max_trip_count() for c in self.criteria]
         counts = [c for c in counts if c is not None]
         return min(counts) if counts else None
+
+
+@dataclasses.dataclass(frozen=True)
+class PerLane(Criterion):
+    """``criterion`` applied to independent lanes of ``width`` consecutive
+    RHS columns each: the batch solvers' systems folded side by side into
+    one solve.  The iteration loop then keeps its counters (iteration,
+    trip cap, true-residual audit rounds) per lane, so each lane stops and
+    is audited as if it were solved alone."""
+
+    criterion: Criterion = None
+    width: int = 1
+
+    def init(self, b, r0_norm, b_norm):
+        return self.criterion.init(b, r0_norm, b_norm)
+
+    def check(self, state, args):
+        return self.criterion.check(state, args)
+
+    def max_trip_count(self):
+        return self.criterion.max_trip_count()
 
 
 def default_criterion(dtype, max_iters=1000, reduction_factor=None):

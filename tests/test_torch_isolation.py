@@ -48,7 +48,12 @@ def test_import_loads_no_jax():
             "ginkgo_tpu_torch.solver.multigrid, "
             "ginkgo_tpu_torch.base.precision, "
             "ginkgo_tpu_torch.base.accessor, ginkgo_tpu_torch.ops.df64, "
-            "ginkgo_tpu_torch.ops.dc64; "
+            "ginkgo_tpu_torch.ops.dc64, ginkgo_tpu_torch.batch, "
+            "ginkgo_tpu_torch.autodiff, ginkgo_tpu_torch.config, "
+            "ginkgo_tpu_torch.log, ginkgo_tpu_torch.log.profiler_hook, "
+            "ginkgo_tpu_torch.utils, ginkgo_tpu_torch.utils.checkpoint, "
+            "ginkgo_tpu_torch.utils.export, "
+            "ginkgo_tpu_torch.utils.compile_cache; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ginkgo_tpu' "
             "or m.startswith('ginkgo_tpu.')]; print(bad); "
