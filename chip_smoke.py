@@ -107,14 +107,15 @@ exits non-zero:
 18c. small f64 runs on the card agree with the port's CPU run: DIA
    ParILUT and ParICT factors at nx = 8, block-Jacobi CG (block size 4,
    adaptive, natural blocks);
-18d. main path, the format zoo on kernel A: ``Ell`` and ``Hybrid``
-   (``automatic``, 0.8) of the nx=160 stencil and ``Coo``, ``Sellp`` and
-   ``Fbcsr(4)`` of the nx=100 one (f32; ``CUT_FORMATS``) must plan
-   ``banded``;
+18d. main path, the format zoo on kernel A: ``Coo``, ``Ell``, ``Sellp``,
+   ``Hybrid`` (``automatic``, 0.8) and ``Fbcsr(4)`` of the nx=100
+   stencil (f32; ``SMALL_FORMAT_NX``: their set-up at nx=160 is 17-54 s
+   a format) must plan ``banded``;
    each applies at k = 1 and 3 against the plain COO product in f64 on
    the card, one kernel-A launch an apply, timed beside the ``Csr``'s
    apply, with its ``from_data`` seconds and card bytes; Jacobi-CG with
-   the ``Ell`` operator takes phase 6's iterations and x bit for bit;
+   the ``Ell`` operator takes the nx=100 ``Csr``'s iterations and x bit
+   for bit;
    ``SparsityCsr`` of the nx=100 pattern applied to ones is value x its
    row sums; then ``diagonal``: the five ``Diagonal`` methods the port
    gained (``rapply``, ``compute_absolute``, ``conj_transpose``,
@@ -253,15 +254,43 @@ exits non-zero:
    the copy rate, and its chain body's device busy time under the
    profiler); ``cli_sparse_blas`` and ``cli_conversion`` (nx=64, one run
    each: set-up numbers) with the route ``spgemm`` takes;
-   ``cli_statistics`` (nx=160 and the ILU case, held to the matrices'
+   ``cli_statistics`` (nx=64 and the ILU case, held to the matrices'
    known rows, row lengths, bandwidth and entries); ``cli_generator``
    (a block-diagonal matrix of 4,096 blocks of 16 and a stencil, read
    back through the native reader equal entry for entry to the matrices
    made again from the seed); ``cli_run_all`` (every suite's file at size
    32, every entry completed);
-25. ``example``: every ``examples_torch/*.py`` ``main()`` on the card, its
-   verification contract asserted, with its seconds, launches and the
-   metrics checked.
+25. ``example``: every ``examples_torch/*.py`` ``main()`` but the two
+   distributed ones on the card, its verification contract asserted,
+   with its seconds, launches and the metrics checked;
+26. the distributed tier (after ``diagonal``), P parts of one mesh
+   co-resident on the card (one process; no number here is scaling):
+   ``dist_match``: ``stencil_3d(12, points=27)`` (banded parts, kernel A)
+   and the FEM matrix at n = 16,384 (packed parts, kernel B) in f64 over
+   4 parts, each communicator's y within 1e-13 of the same operator's on
+   the host, one launch a part an apply, and the ``neighborhood`` y equal
+   to the ``dense`` one bit for bit; ``main_dist_banded``: the nx=160
+   system (f32) over 8 parts (``dense``), Jacobi-CG with the distributed
+   diagonal's inverse to ``SOLVE_TOL`` within 2 iterations of phase 6's,
+   the true residual recomputed with the serial ``Csr``, 8 kernel-A
+   launches an SpMV, the exchange's bytes, ``from_data``'s seconds and an
+   iteration under ``torch.profiler``; ``main_dist_neighborhood``: the
+   same solve at nx=96 with ``comm="neighborhood"``, its y equal to the
+   ``dense`` operator's; ``main_dist_packed``: the ILU system's matrix
+   over 4 parts (kernel B a part), bare BiCGSTAB to 1e-5 within 2
+   iterations of the serial bare solve; ``main_dist_schwarz``: on the
+   nx=64 system over 4 parts, Jacobi-CG, then the two-level Schwarz
+   (block-Jacobi local solves, ``DistributedPgm``, a V-cycle coarse
+   solve) and MG-CG (``mg_level=DistributedPgm()``) in no more
+   iterations, and the default dense-local ``Schwarz()`` on the
+   example's ``stencil_3d(8)``; ``main_dist_2d``: CG through
+   ``DistributedMatrix2D`` on a 4 x 2 grid at nx=64 within 2 iterations
+   of the serial CG; ``df64_dist``: ``df64_dot_dist`` of two 4,096,000-long
+   f32 vectors over 8 parts to 1e-10 of the f64 dot; ``cli_distributed``:
+   ``python -m ginkgo_tpu_torch.benchmark distributed -devices 1,2,4,8
+   -base_edge 64`` on the card;
+27. ``examples_distributed`` (at the end): the two distributed examples
+   (4 parts on the card) and ``graft_entry_torch.dryrun_multichip(8)``.
 
 The line before the last is a JSON object with every kernel's launches on
 the main paths, error against its plain version, time, plain time, bound
@@ -295,6 +324,7 @@ from ginkgo_tpu_torch.base.linop import tensor_leaves
 from ginkgo_tpu_torch.benchmark import build_matrix_data
 from ginkgo_tpu_torch.benchmark import blas as cli_blas_mod
 from ginkgo_tpu_torch.benchmark import conversion as cli_conversion_mod
+from ginkgo_tpu_torch.benchmark import distributed as cli_distributed_mod
 from ginkgo_tpu_torch.benchmark import matrix_generator as cli_generator_mod
 from ginkgo_tpu_torch.benchmark import matrix_statistics as cli_statistics_mod
 from ginkgo_tpu_torch.benchmark import preconditioner as cli_preconditioner_mod
@@ -302,6 +332,11 @@ from ginkgo_tpu_torch.benchmark import run_all as cli_run_all_mod
 from ginkgo_tpu_torch.benchmark import solver as cli_solver_mod
 from ginkgo_tpu_torch.benchmark import sparse_blas as cli_sparse_blas_mod
 from ginkgo_tpu_torch.benchmark import spmv as cli_spmv_mod
+from ginkgo_tpu_torch.distributed import (Partition, Schwarz,
+                                          distribute_vector,
+                                          distribute_vector_2d, make_mesh,
+                                          read_distributed,
+                                          read_distributed_2d)
 from ginkgo_tpu_torch.factorization import (Cholesky, Lu, ParIct, ParIlu,
                                             ParIlut, par_ilut_packed)
 from ginkgo_tpu_torch.ops import (_cuda, pair_contract, registry,
@@ -309,9 +344,9 @@ from ginkgo_tpu_torch.ops import (_cuda, pair_contract, registry,
                                   spmv_packed, spmv_sell, tri_packed)
 from ginkgo_tpu_torch.ops.attic import spmv_chunked, spmv_windowed
 from ginkgo_tpu_torch.matrix.csr_lookup import CsrLookup
-from ginkgo_tpu_torch.multigrid import pgm_dia, pgm_packed
+from ginkgo_tpu_torch.multigrid import DistributedPgm, pgm_dia, pgm_packed
 from ginkgo_tpu_torch.ops.dc64 import dc_from_c64, dc_to_c128, ir_dc64
-from ginkgo_tpu_torch.ops.df64 import ir_df64
+from ginkgo_tpu_torch.ops.df64 import df64_dot_dist, ir_df64
 from ginkgo_tpu_torch.matrix.permutation import permute_data
 from ginkgo_tpu_torch.ops.spmv import coo_spmv
 from ginkgo_tpu_torch.preconditioner import (GaussSeidel, Ic, Ilu, Isai,
@@ -438,11 +473,10 @@ FORMAT_BUILDS = {
         d, strategy=strategy, percent=0.8, **kw),
     "Fbcsr": lambda d, **kw: gtt.Fbcsr.from_data(d, block_size=4, **kw),
 }
-# the formats whose set-up the script cuts by building them at nx=100
-# (1,000,000 rows) instead of the banded system's 160; each still plans
-# ``banded`` and launches kernel A
+# every format and SparsityCsr, their set-up cut by building them at
+# nx=100 (1,000,000 rows) instead of the banded system's 160; each still
+# plans ``banded`` and launches kernel A
 SMALL_FORMAT_NX = 100
-CUT_FORMATS = ("Coo", "Sellp", "Fbcsr", "SparsityCsr")
 # the packed solve's Hybrid (BiCGSTAB without a preconditioner)
 HYBRID_SOLVE_STRATEGY = "minimal_storage_limit"
 # the direct solvers: ND-ordered LU and Cholesky of the 2-D 5-point
@@ -1024,7 +1058,8 @@ def true_rel_residual(A, b, x):
 
 def main_path(label, A, strategy, kernel):
     """Jacobi-CG on ``A`` through the port's entry points; returns every
-    kernel's launches during the solve, its iterations and its x."""
+    kernel's launches during the solve, its iterations, its x and its ms
+    per iteration."""
     assert A.strategy == strategy, (label, A.strategy)
     n = A.shape[0]
     b = torch.ones(n, dtype=torch.float32, device=DEV)
@@ -1037,10 +1072,11 @@ def main_path(label, A, strategy, kernel):
     launches = read_counters()
     true_rel = true_rel_residual(A, b, res.x)
     iters = int(res.iterations[0])
+    ms = seconds * 1e3 / max(iters, 1)
     say(f"main_{label}", n=n, nnz=A.nnz, strategy=A.strategy,
         iterations=iters, converged=bool(res.converged.all()),
         stagnated=bool(res.stagnated.any()), solve_s=seconds,
-        ms_per_iteration=seconds * 1e3 / max(iters, 1),
+        ms_per_iteration=ms,
         true_rel_residual=true_rel, launches=launches)
     if launches[kernel] <= 0:
         raise AssertionError(f"{label}: the solve never launched {kernel}")
@@ -1050,7 +1086,7 @@ def main_path(label, A, strategy, kernel):
     if not (np.isfinite(true_rel) and true_rel <= TRUE_RESIDUAL_LIMIT):
         raise AssertionError(f"{label}: true relative residual {true_rel:.3e}"
                              f" > {TRUE_RESIDUAL_LIMIT}")
-    return launches, iters, res.x
+    return launches, iters, res.x, ms
 
 
 def check_iterations(label, iters):
@@ -2455,46 +2491,45 @@ def check_format(label, name, op, setup_s, strategy, kernel, ref):
                           plan_card_bytes=card_bytes(op.fast_op))
 
 
-def main_formats_banded(data, A, csr_iters, csr_x, small_data, small_A):
-    """Every format of the stencil (``Hybrid``: ``automatic``,
-    ``percent=0.8``) through kernel A: ``Ell`` and ``Hybrid`` at nx=160,
-    the ``CUT_FORMATS`` at nx=100 (``small_data``, held against
-    ``small_A``); then Jacobi-CG with the ``Ell`` operator (its Jacobi
-    from ``A``, the phase-6 ``Csr`` of the same data): the same iterations
-    and, the same arrays reaching the same kernel, the same x bit for bit.
-    Then ``SparsityCsr`` of the nx=100 pattern against value x the
+def main_formats_banded(small_data, small_A):
+    """Every format of the nx=100 stencil (``Hybrid``: ``automatic``,
+    ``percent=0.8``) through kernel A, held against ``small_A``, its
+    ``Csr``; then Jacobi-CG with the ``Ell`` operator against the same
+    solve on ``small_A`` (both with ``small_A``'s Jacobi): the same
+    iterations and, the same arrays reaching the same kernel, the same x
+    bit for bit.  Then ``SparsityCsr`` of the pattern against value x the
     pattern's row sums.  Returns the counted launches."""
     runs, report = [], {}
     for name in FORMAT_BUILDS:
-        src, ref = ((small_data, small_A) if name in CUT_FORMATS
-                    else (data, A))
-        op, setup_s = build_format(name, src)
+        op, setup_s = build_format(name, small_data)
         launches, report[name] = check_format(
             "main_formats_banded", name, op, setup_s, "banded", "dia_spmv",
-            ref)
-        report[name]["nx"] = (SMALL_FORMAT_NX if name in CUT_FORMATS
-                              else BANDED_NX)
+            small_A)
+        report[name]["nx"] = SMALL_FORMAT_NX
         runs.append(launches)
         if name == "Ell":
             E = op
         del op
-    say("main_formats_banded", n=A.shape[0], nnz=A.nnz, formats=report)
+    say("main_formats_banded", n=small_A.shape[0], nnz=small_A.nnz,
+        formats=report)
 
-    n = A.shape[0]
+    n = small_A.shape[0]
     b = torch.ones(n, dtype=torch.float32, device=DEV)
-    M = Jacobi().generate(A)
+    M = Jacobi().generate(small_A)
+    crit = Iteration(2000) | ResidualNorm(SOLVE_TOL)
+    csr = Cg.solve(small_A, b, criteria=crit, preconditioner=M)
+    csr_iters = int(csr.iterations[0])
     reset_counters()
     t0 = time.perf_counter()
-    res = Cg.solve(E, b, criteria=Iteration(2000) | ResidualNorm(SOLVE_TOL),
-                   preconditioner=M)
+    res = Cg.solve(E, b, criteria=crit, preconditioner=M)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counters()
     runs.append(launches)
     iters = int(res.iterations[0])
-    true_rel = true_rel_residual(A, b, res.x)
-    same_x = bool(torch.equal(res.x, csr_x))
-    say("main_ell_cg", iterations=iters, csr_iterations=csr_iters,
+    true_rel = true_rel_residual(small_A, b, res.x)
+    same_x = bool(torch.equal(res.x, csr.x))
+    say("main_ell_cg", n=n, iterations=iters, csr_iterations=csr_iters,
         converged=bool(res.converged.all()), solve_s=seconds,
         ms_per_iteration=seconds * 1e3 / max(iters, 1),
         true_rel_residual=true_rel, x_equal_to_csr=same_x,
@@ -2506,7 +2541,7 @@ def main_formats_banded(data, A, csr_iters, csr_x, small_data, small_A):
                              f"{same_x}) where the Csr took {csr_iters}")
     if not (np.isfinite(true_rel) and true_rel <= TRUE_RESIDUAL_LIMIT):
         raise AssertionError(f"Ell CG: true relative residual {true_rel:.3e}")
-    del E, M, res
+    del E, M, res, csr
 
     t0 = time.perf_counter()
     S = gtt.SparsityCsr.from_data(small_data, value=2.0)
@@ -3971,15 +4006,14 @@ def cli_conversion():
 
 
 def cli_statistics(A_ilu):
-    """Row-length statistics of the nx=160 stencil and the FEM matrix,
+    """Row-length statistics of the nx=64 stencil and the FEM matrix,
     held to what the matrices are."""
-    cases = [stencil_case(BANDED_NX), ILU_CASE]
+    nx = CLI_SMALL_NX
+    cases = [stencil_case(nx), ILU_CASE]
     res, seconds, launches = run_cli("statistics", cli_statistics_mod,
                                      ["-input", json.dumps(cases)])
     st, fem = res
-    n = BANDED_NX ** 3
-    want = dict(rows=n, max=27, min=8, bandwidth=BANDED_NX ** 2
-                + BANDED_NX + 1)
+    want = dict(rows=nx ** 3, max=27, min=8, bandwidth=nx ** 2 + nx + 1)
     got = dict(rows=st["problem"]["rows"], max=st["row_distribution"]["max"],
                min=st["row_distribution"]["min"], bandwidth=st["bandwidth"])
     if got != want or fem["problem"]["nonzeros"] != A_ilu.nnz:
@@ -4071,28 +4105,431 @@ def example_contract(name, out):
     return checked
 
 
-def phase_examples():
-    """Every ``examples_torch/*.py`` ``main()`` on the card (no device
-    given), its verification contract asserted; each example's seconds,
-    launches and checked metrics."""
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples_torch")
+
+
+def run_example(name):
+    """``examples_torch/<name>.py``'s ``main()`` on the card (no device
+    given), counted, its verification contract asserted; prints its
+    seconds, launches and checked metrics and returns the launches."""
     import importlib.util
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "examples_torch")
-    paths = sorted(p for p in os.listdir(root)
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        spec.loader.exec_module(mod)
+        out, seconds, launches = counted(mod.main)
+    say("example", name=name, seconds=seconds,
+        checked=example_contract(name, out),
+        **{k: v for k, v in out.items() if k == "yaml_skipped"},
+        launches=seen(launches))
+    return launches
+
+
+def phase_examples():
+    """Every ``examples_torch/*.py`` but the distributed ones
+    (``examples_distributed``) through ``run_example``."""
+    names = sorted(p[:-3] for p in os.listdir(EXAMPLES_DIR)
                    if p.endswith(".py") and p != "_example_setup.py")
-    runs = []
-    for name in paths:
-        spec = importlib.util.spec_from_file_location(
-            f"example_{name[:-3]}", os.path.join(root, name))
-        mod = importlib.util.module_from_spec(spec)
-        with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
-            spec.loader.exec_module(mod)
-            out, seconds, launches = counted(mod.main)
-        say("example", name=name[:-3], seconds=seconds,
-            checked=example_contract(name, out),
-            **{k: v for k, v in out.items() if k == "yaml_skipped"},
-            launches=seen(launches))
+    return [run_example(name) for name in names
+            if name not in DIST_EXAMPLES]
+
+
+# -- the distributed tier -----------------------------------------------------
+# P parts of a mesh on the one card (one process, the JAX package's single
+# program): the exchange is real work on the card, but it measures no
+# scaling.
+DIST_PARTS = 8                    # the flagship: 20 planes of nx=160 a part
+DIST_MATCH_NX = 12                # stencil_3d(12, points=27), f64, P = 4
+DIST_MATCH_FEM = {"fem": 16384, "offscale": 1.2}
+DIST_MATCH_TOL = 1e-13
+DIST_ITER_SLACK = 2               # tests/test_distributed.py:226's slack
+DIST_NEIGHBORHOOD_NX = 96
+DIST_SMALL_PARTS = 4              # the FEM, Schwarz and example systems
+DIST_SCHWARZ_NX = 64
+DIST_2D_GRID = (4, 2)
+DF64_DIST_N = 4096000
+DF64_DIST_TOL = 1e-10             # tests/test_df64.py:189
+CLI_DIST_ARGS = ["-devices", "1,2,4,8", "-base_edge", "64"]
+DIST_EXAMPLES = ("distributed_solver", "distributed_multigrid")
+
+
+def dist_say(phase, **fields):
+    """A phase line of the distributed tier, with the card's name and
+    power limit (``nvidia-smi``) beside its numbers."""
+    say(phase, card=card_line(), **fields)
+
+
+def dist_mesh(P):
+    return make_mesh((P,), ("rows",))
+
+
+def natural(part, t):
+    """The natural rows of a padded vector on the card."""
+    slots = torch.from_numpy(part.padded_slot(
+        np.arange(part.global_size))).to(t.device)
+    return t[slots]
+
+
+def exchange_fields(A, k=1):
+    """Bytes of one SpMV's exchange at ``k`` columns: the buffer the
+    communicator moves (``dense``: the (P, P, S) cube, ``neighborhood``:
+    the (P, sum S_s) chunks) and the ghost values in it."""
+    esize = A.loc_vals.element_size() * k
+    send = A.send_idx if A.send_idx is not None else A.send_nb
+    return dict(comm=A.comm, shifts=list(A.shifts),
+                buffer_bytes=int(send.numel()) * esize,
+                halo_bytes=int((send < A.local_size).sum()) * esize)
+
+
+def dist_fields(A):
+    layout = ("banded" if A.dia_vals is not None
+              else "packed" if A.pell_vals is not None else "gather")
+    return dict(parts=A.num_parts, local=A.local_size, layout=layout,
+                loc_nnz=int((A.loc_rows < A.local_size).sum()),
+                ghost_nnz=int((A.nl_rows < A.local_size).sum()),
+                card_bytes=card_bytes(A))
+
+
+def timed_read(data, part, mesh, **kw):
+    """``read_distributed`` with its seconds (host planning, upload and
+    the per-part streams, ended by a sync)."""
+    t0 = time.perf_counter()
+    A = read_distributed(data, part, mesh, **kw)
+    torch.cuda.synchronize()
+    return A, time.perf_counter() - t0
+
+
+def dist_match():
+    """Small cases on the card against the same on the host: y within
+    ``DIST_MATCH_TOL`` of the host's, each part's kernel launched once an
+    apply, and the two communicators' y equal bit for bit."""
+    P = DIST_SMALL_PARTS
+    rng = np.random.default_rng(5)
+    for label, data, kernel in (
+            ("banded", stencil_3d(DIST_MATCH_NX, points=27), "dia_spmv"),
+            ("packed", build_matrix_data(DIST_MATCH_FEM), "pell_spmv")):
+        n = data.shape[0]
+        part = Partition.build_from_global_size_uniform(P, n)
+        x = rng.standard_normal((n, 1))
+        ys, rows = {}, {}
+        for comm in ("dense", "neighborhood"):
+            A = read_distributed(data, part, dist_mesh(P), comm=comm)
+            Ah = read_distributed(data, part, make_mesh(
+                (P,), ("rows",), device="cpu"), comm=comm)
+            xd = distribute_vector(x, part, A.mesh)
+            y, _, launches = counted(lambda: A.apply(xd))
+            yh = Ah.apply(distribute_vector(x, part, Ah.mesh))
+            err = rel_err(y.cpu(), yh)[0]
+            rows[comm] = dict(rel_err=err, launches=seen(launches),
+                              **dist_fields(A))
+            if dist_fields(A)["layout"] != label:
+                raise AssertionError(f"dist_match {label}: planned "
+                                     f"{dist_fields(A)['layout']}")
+            if not err <= DIST_MATCH_TOL or launches[kernel] != P:
+                raise AssertionError(f"dist_match {label} {comm}: rel err "
+                                     f"{err:.3e}, {kernel} launched "
+                                     f"{launches[kernel]} times, not {P}")
+            ys[comm] = y
+        same = bool(torch.equal(ys["dense"], ys["neighborhood"]))
+        dist_say("dist_match", matrix=label, n=n, dtype="float64", **rows,
+                 neighborhood_equals_dense=same)
+        if not same:
+            raise AssertionError(f"dist_match {label}: the neighborhood y "
+                                 "differs from the dense y")
+
+
+def dist_solve(A, solver, M, tol, cap=2000):
+    """``solver`` on the distributed ``A`` with b = ones (f32), counted:
+    (result, seconds, launches, b)."""
+    part = A.host_partition
+    b = distribute_vector(np.ones(part.global_size, np.float32), part,
+                          A.mesh)
+    reset_counters()
+    t0 = time.perf_counter()
+    res = solver.solve(A, b, criteria=Iteration(cap) | ResidualNorm(tol),
+                       preconditioner=M)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, read_counters(), b
+
+
+def dist_solve_fields(A, serial, res, seconds, launches, b):
+    iters = int(res.iterations[0])
+    part = A.host_partition
+    return dict(iterations=iters, converged=bool(res.converged.all()),
+                stagnated=bool(res.stagnated.any()), solve_s=seconds,
+                ms_per_iteration=seconds * 1e3 / max(iters, 1),
+                true_rel_residual=true_rel_residual(
+                    serial, natural(part, b), natural(part, res.x)),
+                launches=seen(launches))
+
+
+def check_dist(label, fields, want_iters, limit, kernel, parts):
+    if not fields["converged"]:
+        raise AssertionError(f"{label}: did not converge ({fields})")
+    if want_iters is not None and \
+            abs(fields["iterations"] - want_iters) > DIST_ITER_SLACK:
+        raise AssertionError(f"{label}: {fields['iterations']} iterations,"
+                             f" the serial path {want_iters}")
+    if not (np.isfinite(fields["true_rel_residual"])
+            and fields["true_rel_residual"] <= limit):
+        raise AssertionError(f"{label}: true relative residual "
+                             f"{fields['true_rel_residual']:.3e} > {limit}")
+    count = fields["launches"].get(kernel, 0)
+    if count <= 0 or count % parts:
+        raise AssertionError(f"{label}: {kernel} launched {count} times, "
+                             f"not a multiple of the {parts} parts")
+
+
+def main_dist_banded(d, serial, serial_iters, serial_ms):
+    """The flagship: the nx=160 system over ``DIST_PARTS`` parts on the
+    card (``dense``), Jacobi-CG with the distributed diagonal's inverse."""
+    P = DIST_PARTS
+    part = Partition.build_from_global_size_uniform(P, d.shape[0])
+    A, setup_s = timed_read(d, part, dist_mesh(P), dtype=np.float32)
+    if A.dia_vals is None or A.comm != "dense":
+        raise AssertionError(f"main_dist_banded: {dist_fields(A)}")
+    b = distribute_vector(np.ones(part.global_size, np.float32), part,
+                          A.mesh)
+    _, _, one = counted(lambda: A.apply(b))
+    M = A.extract_diagonal().inverse()
+    res, seconds, launches, b = dist_solve(A, Cg, M, SOLVE_TOL)
+    fields = dist_solve_fields(A, serial, res, seconds, launches, b)
+    prof = profile_ms(lambda: Cg.solve(A, b, criteria=Iteration(10),
+                                       preconditioner=M), per=10)
+    dist_say("main_dist_banded", n=part.global_size, **dist_fields(A),
+             setup_s=setup_s, **fields, serial_iterations=serial_iters,
+             serial_ms_per_iteration=serial_ms,
+             one_spmv_launches=seen(one), exchange=exchange_fields(A),
+             profiled_iteration=prof,
+             peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if one["dia_spmv"] != P:
+        raise AssertionError(f"main_dist_banded: kernel A launched "
+                             f"{one['dia_spmv']} times an SpMV, not {P}")
+    check_dist("main_dist_banded", fields, serial_iters,
+               TRUE_RESIDUAL_LIMIT, "dia_spmv", P)
+    return launches
+
+
+def main_dist_neighborhood():
+    """The same solve with ``comm="neighborhood"`` at nx=96, and its y
+    against the ``dense`` operator's on the same matrix."""
+    P = DIST_PARTS
+    d = stencil_3d(DIST_NEIGHBORHOOD_NX, points=27)
+    part = Partition.build_from_global_size_uniform(P, d.shape[0])
+    An, setup_s = timed_read(d, part, dist_mesh(P), dtype=np.float32,
+                             comm="neighborhood")
+    Ad = read_distributed(d, part, dist_mesh(P), dtype=np.float32)
+    x = distribute_vector(np.random.default_rng(9).standard_normal(
+        (part.global_size, 1)).astype(np.float32), part, An.mesh)
+    same = bool(torch.equal(An.apply(x), Ad.apply(x)))
+    del Ad
+    serial = gtt.Csr.from_data(d, dtype=np.float32)
+    res, seconds, launches, b = dist_solve(
+        An, Cg, An.extract_diagonal().inverse(), SOLVE_TOL)
+    fields = dist_solve_fields(An, serial, res, seconds, launches, b)
+    dist_say("main_dist_neighborhood", n=part.global_size, **dist_fields(An),
+             setup_s=setup_s, **fields, exchange=exchange_fields(An),
+             neighborhood_equals_dense=same)
+    if not same:
+        raise AssertionError("main_dist_neighborhood: y differs from the "
+                             "dense communicator's")
+    check_dist("main_dist_neighborhood", fields, None, TRUE_RESIDUAL_LIMIT,
+               "dia_spmv", P)
+    return launches
+
+
+def main_dist_packed(d, serial, bare_iters):
+    """The ILU system's FEM matrix over 4 parts: packed local blocks
+    (kernel B a part), bare BiCGSTAB to ``ILU_TOL`` within the slack of
+    the serial bare solve."""
+    P = DIST_SMALL_PARTS
+    part = Partition.build_from_global_size_uniform(P, d.shape[0])
+    A, setup_s = timed_read(d, part, dist_mesh(P), dtype=np.float32)
+    res, seconds, launches, b = dist_solve(A, Bicgstab, None, ILU_TOL,
+                                           cap=1000)
+    fields = dist_solve_fields(A, serial, res, seconds, launches, b)
+    dist_say("main_dist_packed", n=part.global_size, **dist_fields(A),
+             setup_s=setup_s, **fields, serial_bare_iterations=bare_iters,
+             exchange=exchange_fields(A))
+    if A.pell_vals is None:
+        raise AssertionError("main_dist_packed: no packed local blocks")
+    check_dist("main_dist_packed", fields, bare_iters, ILU_TOL * 10,
+               "pell_spmv", P)
+    return launches
+
+
+def main_dist_schwarz(d):
+    """On the nx=64 system over 4 parts: distributed Jacobi-CG, then the
+    two-level Schwarz (block-Jacobi local solves, ``DistributedPgm``
+    coarse level, one V-cycle as the coarse solve: the default dense
+    inverse of 131,072 coarse rows does not fit) in no more iterations,
+    then ``Multigrid(mg_level=DistributedPgm())`` as CG's preconditioner;
+    and the default dense-local ``Schwarz()`` on the example's
+    ``stencil_3d(8)`` (f64)."""
+    P = DIST_SMALL_PARTS
+    part = Partition.build_from_global_size_uniform(P, d.shape[0])
+    A, setup_s = timed_read(d, part, dist_mesh(P), dtype=np.float32)
+    serial = gtt.Csr.from_data(d, dtype=np.float32)
+    runs, rows = [], {}
+    res, seconds, launches, b = dist_solve(
+        A, Cg, A.extract_diagonal().inverse(), DIA_TOL)
+    rows["jacobi"] = dist_solve_fields(A, serial, res, seconds, launches, b)
+    check_dist("main_dist_schwarz jacobi", rows["jacobi"], None, DIA_TOL,
+               "dia_spmv", P)
+    runs.append(launches)
+    for label, factory in (
+            ("two_level", Schwarz(local_solver=Jacobi(max_block_size=8),
+                                  coarse_level=DistributedPgm(),
+                                  coarse_solver=Multigrid.build(
+                                      criteria=Iteration(1)))),
+            ("multigrid", Multigrid.build(mg_level=DistributedPgm()))):
+        t0 = time.perf_counter()
+        M = factory.generate(A)
+        torch.cuda.synchronize()
+        generate_s = time.perf_counter() - t0
+        if label == "multigrid":
+            levels = [dict(n=lvl.fine_op.shape[0], route=lvl.route)
+                      for lvl in M.levels]
+            M = M.cycle_operator()
+        else:
+            levels = [dict(n=M.coarse_solve.shape[0], route="coarse")]
+        res, seconds, launches, b = dist_solve(A, Cg, M, DIA_TOL)
+        rows[label] = dict(generate_s=generate_s, levels=levels,
+                           **dist_solve_fields(A, serial, res, seconds,
+                                               launches, b))
+        check_dist(f"main_dist_schwarz {label}", rows[label], None,
+                   DIA_TOL, "dia_spmv", P)
+        if rows[label]["iterations"] > rows["jacobi"]["iterations"]:
+            raise AssertionError(f"main_dist_schwarz: {label} took "
+                                 f"{rows[label]['iterations']} iterations,"
+                                 " Jacobi-CG "
+                                 f"{rows['jacobi']['iterations']}")
         runs.append(launches)
+    small = stencil_3d(8, points=7)
+    sp = Partition.build_from_global_size_uniform(P, small.shape[0])
+    As = read_distributed(small, sp, dist_mesh(P))
+    bs = distribute_vector(np.ones(small.shape[0]), sp, As.mesh)
+    (res, seconds, launches) = counted(lambda: Cg.solve(
+        As, bs, criteria=Iteration(500) | ResidualNorm(1e-10),
+        preconditioner=Schwarz().generate(As)))
+    x_oracle = np.linalg.solve(small.to_dense(), np.ones(small.shape[0]))
+    err = float(np.abs(natural(sp, res.x).cpu().numpy() - x_oracle).max())
+    rows["dense_local"] = dict(iterations=int(res.iterations[0]),
+                               converged=bool(res.converged.all()),
+                               solve_s=seconds, x_err=err,
+                               launches=seen(launches))
+    runs.append(launches)
+    dist_say("main_dist_schwarz", n=part.global_size, **dist_fields(A),
+             setup_s=setup_s, solves=rows)
+    if not (rows["dense_local"]["converged"] and err <= 1e-8):
+        raise AssertionError(f"main_dist_schwarz: dense-local Schwarz-CG "
+                             f"{rows['dense_local']}")
+    return runs
+
+
+def main_dist_2d(d):
+    """CG through ``DistributedMatrix2D`` on a 4 x 2 grid of parts at
+    nx=64 (f32; each block's product a ``coo_spmv``, the sum over the
+    cols axis for the reference's psum), within the slack of the serial
+    CG's iterations."""
+    pr, pc = DIST_2D_GRID
+    n = d.shape[0]
+    rp = Partition.build_from_global_size_uniform(pr, n)
+    cp = Partition.build_from_global_size_uniform(pc, n)
+    t0 = time.perf_counter()
+    A2 = read_distributed_2d(d, rp, make_mesh(DIST_2D_GRID,
+                                              ("rows", "cols")),
+                             col_partition=cp, dtype=np.float32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    serial = gtt.Csr.from_data(d, dtype=np.float32)
+    b = distribute_vector_2d(np.ones(n, np.float32), cp, A2.mesh,
+                             axis="cols")
+    crit = Iteration(2000) | ResidualNorm(DIA_TOL)
+    res, seconds, launches = counted(lambda: Cg.solve(A2, b, criteria=crit))
+    serial_iters = int(Cg.solve(serial, torch.ones(n, device=DEV),
+                                criteria=crit).iterations[0])
+    iters = int(res.iterations[0])
+    true_rel = true_rel_residual(serial, natural(rp, b),
+                                 natural(rp, res.x))
+    dist_say("main_dist_2d", n=n, grid=list(DIST_2D_GRID), setup_s=setup_s,
+             block_cap=A2.blk_vals.shape[2], iterations=iters,
+             serial_iterations=serial_iters,
+             converged=bool(res.converged.all()), solve_s=seconds,
+             ms_per_iteration=seconds * 1e3 / max(iters, 1),
+             true_rel_residual=true_rel, launches=seen(launches))
+    if not (bool(res.converged.all()) and true_rel <= DIA_TOL
+            and abs(iters - serial_iters) <= DIST_ITER_SLACK):
+        raise AssertionError(f"main_dist_2d: {iters} iterations (serial "
+                             f"{serial_iters}), true residual {true_rel}")
+    return launches
+
+
+def df64_dist():
+    """``df64_dot_dist`` of two seeded f32 vectors of 4,096,000 over 8
+    parts against the f64 dot on the card."""
+    g = torch.Generator(device=DEV).manual_seed(7)
+    x = torch.randn(DF64_DIST_N, generator=g, device=DEV)
+    y = torch.randn(DF64_DIST_N, generator=g, device=DEV)
+    mesh = dist_mesh(DIST_PARTS)
+    h, lo = df64_dot_dist(x, y, mesh)
+    got = float(h.double() + lo.double())
+    want = float(x.double() @ y.double())
+    rel = abs(got - want) / (abs(want) + 1)
+    naive = abs(float(x @ y) - want) / (abs(want) + 1)
+    ms = time_ms(lambda: df64_dot_dist(x, y, mesh), 10)
+    dist_say("df64_dist", n=DF64_DIST_N, parts=DIST_PARTS, rel_err=rel,
+             f32_dot_rel_err=naive, ms=ms)
+    if not rel <= DF64_DIST_TOL:
+        raise AssertionError(f"df64_dist: rel err {rel:.3e} > "
+                             f"{DF64_DIST_TOL}")
+
+
+def cli_distributed():
+    """``python -m ginkgo_tpu_torch.benchmark distributed`` on the card:
+    weak scaling of the nx=64-based stencil over 1, 2, 4 and 8 parts, all
+    on the one card (``device_pool`` says so)."""
+    res, seconds, launches = run_cli("distributed", cli_distributed_mod,
+                                     CLI_DIST_ARGS)
+    for e in res:
+        if not (e["device_pool"].startswith(DEV.type)
+                and np.isfinite(e["time"]) and e["time"] > 0):
+            raise AssertionError(f"cli_distributed: {e}")
+    require_launched("cli_distributed", launches, ("dia_spmv",))
+    dist_say("cli_distributed", argv=CLI_DIST_ARGS, results=res,
+             seconds=seconds, launches=seen(launches))
+    return launches
+
+
+def examples_distributed():
+    """The two distributed examples (4 parts on the card) and
+    ``graft_entry_torch.dryrun_multichip(8)``."""
+    runs = [run_example(name) for name in DIST_EXAMPLES]
+    _, seconds, launches = counted(
+        lambda: graft_entry_torch.dryrun_multichip(DIST_PARTS))
+    # its stencil's parts are under 256 rows (the gather layout); its
+    # FEM matrix's take the packed layout
+    require_launched("dryrun_multichip", launches, ("pell_spmv",))
+    dist_say("examples_distributed", dryrun_multichip_s=seconds,
+             dryrun_launches=seen(launches))
+    return runs + [launches]
+
+
+def distributed_phases(d_banded, Ab, banded_iters, banded_ms, d_ilu, Ai,
+                       bare_iters):
+    """Every distributed phase; returns the launches of their main
+    paths."""
+    dist_match()
+    runs = [main_dist_banded(d_banded, Ab, banded_iters, banded_ms),
+            main_dist_neighborhood(),
+            main_dist_packed(d_ilu, Ai, bare_iters)]
+    d64 = stencil_3d(DIST_SCHWARZ_NX, points=27)
+    runs += main_dist_schwarz(d64)
+    runs.append(main_dist_2d(d64))
+    df64_dist()
+    runs.append(cli_distributed())
     return runs
 
 
@@ -4178,8 +4615,8 @@ def main() -> int:
     del plan
 
     ilu_launches, ilu_iters, bare_iters = main_ilu(Ai, M)
-    banded_launches, banded_iters, banded_x = main_path("banded", Ab,
-                                                        "banded", "dia_spmv")
+    banded_launches, banded_iters, _, banded_ms = main_path(
+        "banded", Ab, "banded", "dia_spmv")
     runs = [banded_launches,
             main_path("packed", Ap, "packed", "pell_spmv")[0],
             ilu_launches, ilut_launches, regenerate_launches,
@@ -4207,11 +4644,13 @@ def main() -> int:
     del Ap
     d_small = stencil_3d(SMALL_FORMAT_NX, points=27)
     A_small = gtt.Csr.from_data(d_small, dtype=np.float32)
-    runs += main_formats_banded(d_banded, Ab, banded_iters, banded_x,
-                                d_small, A_small)
+    runs += main_formats_banded(d_small, A_small)
     phase_diagonal(Ab, A_small, d_small)
     del d_small, A_small
-    del Ab, banded_x
+    # the distributed tier: the nx=160 system over 8 parts on the card
+    runs += distributed_phases(d_banded, Ab, banded_iters, banded_ms, d_ilu,
+                               Ai, bare_iters)
+    del Ab
     d_file = phase_mtx_io(d_ilu)
     runs += main_formats_packed(d_file, Ai, bare_iters)
     del d_file
@@ -4297,6 +4736,7 @@ def main() -> int:
     cli_generator()
     runs.append(cli_run_all())
     runs += phase_examples()
+    runs += examples_distributed()
     for k in kernels:
         k["launches"] = sum(run[k["name"]] for run in runs)
 

@@ -2,8 +2,8 @@
 
 Suites mirror Ginkgo's benchmark executables: spmv, solver,
 preconditioner, blas, sparse_blas, conversion, matrix_statistics,
-matrix_generator (and distributed, which raises until the distributed
-tier is ported).
+distributed (weak scaling over a mesh of parts on one device),
+matrix_generator.
 """
 
 import importlib

@@ -51,12 +51,6 @@ class type_descriptor:
         self.index_type = as_torch_dtype(index_type)
 
 
-def _schwarz(**kwargs):
-    raise NotSupportedError(
-        "preconditioner::Schwarz needs the distributed tier, which the "
-        "port does not have yet (ROADMAP.md queue 1 item 13)")
-
-
 def _type_table():
     from ..solver import (Bicg, Bicgstab, CbGmres, Cg, Cgs, Chebyshev, Fcg,
                           Gcr, Gmres, Idr, Ir, LowerTrs, Minres, Multigrid,
@@ -70,6 +64,7 @@ def _type_table():
     from ..factorization.par_ilut import ParIct, ParIlut
     from ..factorization.direct import Cholesky, Lu
     from ..multigrid.pgm import FixedCoarsening, Pgm
+    from ..distributed.schwarz import Schwarz
     from ..reorder import Amd, Mc64, NestedDissection, Rcm, ScaledReordered
     from ..stop.criterion import (ImplicitResidualNorm, Iteration,
                                   ResidualNorm, Time)
@@ -97,7 +92,7 @@ def _type_table():
         "preconditioner::Isai": direct_ctor(Isai),
         "preconditioner::Sor": direct_ctor(Sor),
         "preconditioner::GaussSeidel": direct_ctor(GaussSeidel),
-        "preconditioner::Schwarz": _schwarz,
+        "preconditioner::Schwarz": direct_ctor(Schwarz),
         # factorizations
         "factorization::ParIlu": direct_ctor(ParIlu),
         "factorization::ParIc": direct_ctor(ParIc),

@@ -6,8 +6,9 @@ instance ``ginkgo_tpu``'s, read out as numpy) and returns the port's
 ``Csr`` holding the same layout, without planning again.  Both packages
 then run on identical operators.  ``factorization_from_arrays`` does the
 same for the two factors of an incomplete factorization,
-``multigrid_from_arrays`` for a whole multigrid hierarchy, and
-``batch_from_arrays`` for a batch matrix.
+``multigrid_from_arrays`` for a whole multigrid hierarchy,
+``batch_from_arrays`` for a batch matrix, and
+``distributed_from_arrays`` for a distributed matrix over its mesh.
 """
 
 from __future__ import annotations
@@ -132,3 +133,21 @@ def batch_from_arrays(kind: str, arrays: dict, static: dict, device=None,
         values=put(arrays[value_name]),
         shape=tuple(int(s) for s in static["shape"]),
         nnz=int(static["nnz"]), **kw)
+
+
+def distributed_from_arrays(arrays: dict, static: dict, mesh=None,
+                            index_dtype=torch.int32):
+    """A ``DistributedMatrix`` planned elsewhere, without planning again:
+    ``arrays`` its planned arrays (name -> numpy array, absent or None
+    where the layout has none: ``distributed.matrix.INDEX_ARRAYS``,
+    ``VALUE_ARRAYS``, ``SLAB_ARRAYS``), ``static`` its static fields
+    (``STATIC_FIELDS``: shape, local_size, num_parts, dia_offsets,
+    dia_meta, pell_meta, axis, comm, shifts, shift_sizes).  ``mesh``: the
+    port's mesh (``None``: ``num_parts`` parts on the CUDA device)."""
+    from .distributed.matrix import DistributedMatrix
+    from .distributed.mesh import make_mesh
+    if mesh is None:
+        mesh = make_mesh((int(static["num_parts"]),),
+                         (static.get("axis") or "rows",))
+    return DistributedMatrix.from_arrays(arrays, static, mesh,
+                                         index_dtype=index_dtype)

@@ -18,8 +18,10 @@ card's native f64 is not swapped in):
 * ``ir_df64``: iterative refinement with the residual evaluated in df64 —
   f32 inner solves converge to ~1e-12 residuals.
 
-All functions take/return plain f32 tensors (hi, lo).  The distributed
-dot (``df64_dot_dist``) joins with the distributed tier.
+* ``df64_dot_dist``: the dot of two vectors of a mesh of parts, each
+  part's partial in df64 and the P partials summed by the df64 tree.
+
+All functions take/return plain f32 tensors (hi, lo).
 """
 
 from __future__ import annotations
@@ -295,3 +297,24 @@ def pell_spmv_df64(vals, idx, qw, xbase_row, meta_items, xh, xl):
     yh = ph[:, :, 0].reshape(Gs * _BLOCKS_PER_SB * LANES)[:n]
     yl = pe[:, :, 0].reshape(Gs * _BLOCKS_PER_SB * LANES)[:n]
     return yh, yl
+
+
+# ---------------------------------------------------------------------------
+# Compensated distributed dot: per-part Ogita dot2, the (hi, lo) partials
+# combined by the df64 tree (a plain sum would round the hi parts at f32
+# and forfeit the compensation).  Error ~ u^2 * (n * cond + P).
+# ---------------------------------------------------------------------------
+
+def df64_dot_dist(x, y, mesh, axis="rows"):
+    """dot(x, y) of f32 vectors partitioned over ``mesh[axis]`` (global
+    padded tensors, part p owning rows ``[p * local, (p + 1) * local)``)
+    with df64 accumulation: a ``df64_dot`` per part, then the P (hi, lo)
+    partials in the error-free df64 tree.  Returns a df64 scalar
+    (hi, lo)."""
+    P = mesh.shape[axis]
+    local = x.shape[0] // P
+    parts = [df64_dot(x[p * local:(p + 1) * local].reshape(-1),
+                      y[p * local:(p + 1) * local].reshape(-1))
+             for p in range(P)]
+    return _pairwise_df(torch.stack([h for h, _ in parts]),
+                        torch.stack([l_ for _, l_ in parts]))

@@ -95,10 +95,11 @@ def unblock_diag_values(dvb, meta):
 
 
 @register("dia_spmv", "reference")
-def dia_spmv_reference(offsets, dvb, meta, b):
+def dia_spmv_reference(offsets, dvb, meta, b, out=None):
     """Plain version of the banded kernel: unblock the (G, D, S, 128)
     layout back to (D, n), pad b once by the band extent, and accumulate
-    full-length shifted slices in diagonal order."""
+    full-length shifted slices in diagonal order.  With ``out`` the result
+    is copied into it and ``out`` returned."""
     diag_values = unblock_diag_values(dvb, meta)
     n = meta["n"]
     lo = -min(min(offsets), 0)
@@ -109,7 +110,7 @@ def dia_spmv_reference(offsets, dvb, meta, b):
     for d, off in enumerate(offsets[1:], start=1):
         acc = acc + diag_values[d][:, None].to(b.dtype) * \
             xp[lo + off: lo + off + n]
-    return acc
+    return acc if out is None else out.copy_(acc)
 
 
 @functools.lru_cache(maxsize=64)
@@ -118,18 +119,19 @@ def _offsets_on(offsets: tuple, device: torch.device):
 
 
 @register("dia_spmv", "cuda")
-def dia_spmv_cuda(offsets, dvb, meta, b):
+def dia_spmv_cuda(offsets, dvb, meta, b, out=None):
     """Banded SpMV/SpMM on the CUDA kernel, one launch per <= 8 columns;
-    complex operands go to its complex instantiation.
+    complex operands go to its complex instantiation.  ``out`` (optional):
+    a contiguous (n, k) tensor the kernel writes instead of a new one.
 
     A tensor on the CPU takes the plain version; on a CUDA device this
     launches the kernel or raises — it never falls back."""
     b = kernel_vector(dvb.dtype, b)
     if b.device.type != "cuda":
-        return dia_spmv_reference(offsets, dvb, meta, b)
+        return dia_spmv_reference(offsets, dvb, meta, b, out)
     if b.is_complex() or dvb.is_complex():
-        return dia_spmv_complex_cuda(offsets, dvb, meta, b)
-    y = _output(offsets, dvb, meta, b, KERNEL_DTYPES)
+        return dia_spmv_complex_cuda(offsets, dvb, meta, b, out)
+    y = _output(offsets, dvb, meta, b, KERNEL_DTYPES, out)
     if y.numel() == 0:
         return y
     for c0 in range(0, b.shape[1], MAX_RHS):
@@ -138,7 +140,7 @@ def dia_spmv_cuda(offsets, dvb, meta, b):
     return y
 
 
-def dia_spmv_complex_cuda(offsets, dvb, meta, b):
+def dia_spmv_complex_cuda(offsets, dvb, meta, b, out=None):
     """Complex banded SpMV/SpMM on the kernel's complex instantiation
     (``COMPLEX_KERNEL_DTYPES``), one launch per <= 8 columns: the
     counterpart of ``ginkgo_tpu/ops/spmv_pallas.py::dia_spmv_complex``.
@@ -147,8 +149,8 @@ def dia_spmv_complex_cuda(offsets, dvb, meta, b):
     launches the kernel or raises."""
     b = kernel_vector(dvb.dtype, b)
     if b.device.type != "cuda":
-        return dia_spmv_reference(offsets, dvb, meta, b)
-    y = _output(offsets, dvb, meta, b, COMPLEX_KERNEL_DTYPES)
+        return dia_spmv_reference(offsets, dvb, meta, b, out)
+    y = _output(offsets, dvb, meta, b, COMPLEX_KERNEL_DTYPES, out)
     if y.numel() == 0:
         return y
     for c0 in range(0, b.shape[1], MAX_RHS):
@@ -157,9 +159,10 @@ def dia_spmv_complex_cuda(offsets, dvb, meta, b):
     return y
 
 
-def _output(offsets, dvb, meta, b, dtypes):
+def _output(offsets, dvb, meta, b, dtypes, out=None):
     """Check that the operands fit the kernel and return the (n, k)
-    output; raises on what the kernel does not take."""
+    output (``out`` when given); raises on what the kernel does not
+    take."""
     n = meta["n"]
     if (dvb.dtype, b.dtype) not in dtypes:
         raise TypeError(f"dia_spmv kernel takes (values, vector) dtypes "
@@ -175,7 +178,14 @@ def _output(offsets, dvb, meta, b, dtypes):
         raise ValueError(f"dia_spmv: dvb on {dvb.device}, b on {b.device}")
     if not (dvb.is_contiguous() and b.is_contiguous()):
         raise ValueError("dia_spmv: dvb and b must be contiguous")
-    return torch.empty((n, b.shape[1]), dtype=b.dtype, device=b.device)
+    if out is None:
+        return torch.empty((n, b.shape[1]), dtype=b.dtype, device=b.device)
+    if (tuple(out.shape) != (n, b.shape[1]) or out.dtype != b.dtype
+            or out.device != b.device or not out.is_contiguous()):
+        raise ValueError(f"dia_spmv: out {tuple(out.shape)}/{out.dtype} on "
+                         f"{out.device} is not a contiguous "
+                         f"({n}, {b.shape[1]})/{b.dtype} on {b.device}")
+    return out
 
 
 def _launch(offsets, dvb, meta, b, y, c0):

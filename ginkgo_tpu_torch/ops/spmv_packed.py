@@ -224,27 +224,29 @@ register("pell_spmv", "reference")(sell_spmv_reference)
 
 
 @register("pell_spmv", "cuda")
-def pell_spmv_cuda(sell, sell_meta, b):
+def pell_spmv_cuda(sell, sell_meta, b, out=None):
     """Kernel B: the packed SpMV/SpMM over the layout's compact stream
     (``spmv_sell.sell_from_packed``) on ``csrc/sell_spmv.cu``, one launch
     per <= 8 columns; complex operands go to its complex instantiation.
+    ``out`` (optional): a contiguous (n, k) tensor the kernel writes
+    instead of a new one.
 
     A tensor on the CPU takes the plain version; on a CUDA device this
     launches the kernel or raises — it never falls back."""
     sv = sell["sv"]
     b = spmv_banded.kernel_vector(sv.dtype, b)
     if b.device.type != "cuda":
-        return sell_spmv_reference(sell, sell_meta, b)
+        return sell_spmv_reference(sell, sell_meta, b, out)
     if b.is_complex() or sv.is_complex():
-        return pell_spmv_complex_cuda(sell, sell_meta, b)
-    y = _output(sell, sell_meta, b, KERNEL_DTYPES)
+        return pell_spmv_complex_cuda(sell, sell_meta, b, out)
+    y = _output(sell, sell_meta, b, KERNEL_DTYPES, out)
     for c0 in range(0, b.shape[1], spmv_sell.MAX_RHS):
         spmv_sell.launch(sell, sell_meta, b, y, c0)
         pell_spmv_cuda.launches += 1
     return y
 
 
-def pell_spmv_complex_cuda(sell, sell_meta, b):
+def pell_spmv_complex_cuda(sell, sell_meta, b, out=None):
     """Complex packed SpMV/SpMM on the complex instantiation of
     ``csrc/sell_spmv.cu`` (``COMPLEX_KERNEL_DTYPES``), one launch per <= 8
     columns: the counterpart of ``ginkgo_tpu/ops/spmv_packed.py::
@@ -254,21 +256,21 @@ def pell_spmv_complex_cuda(sell, sell_meta, b):
     launches the kernel or raises."""
     b = spmv_banded.kernel_vector(sell["sv"].dtype, b)
     if b.device.type != "cuda":
-        return sell_spmv_reference(sell, sell_meta, b)
-    y = _output(sell, sell_meta, b, COMPLEX_KERNEL_DTYPES)
+        return sell_spmv_reference(sell, sell_meta, b, out)
+    y = _output(sell, sell_meta, b, COMPLEX_KERNEL_DTYPES, out)
     for c0 in range(0, b.shape[1], spmv_sell.MAX_RHS):
         spmv_sell.launch(sell, sell_meta, b, y, c0)
         pell_spmv_complex_cuda.launches += 1
     return y
 
 
-def _output(sell, sell_meta, b, dtypes):
+def _output(sell, sell_meta, b, dtypes, out=None):
     sv = sell["sv"]
     if (sv.dtype, b.dtype) not in dtypes:
         raise TypeError(f"pell_spmv kernel takes (values, vector) dtypes "
                         f"{sorted(map(str, dtypes))}, got "
                         f"({sv.dtype}, {b.dtype})")
-    return spmv_sell.prepare(sell, sell_meta, b, "pell_spmv")
+    return spmv_sell.prepare(sell, sell_meta, b, "pell_spmv", out)
 
 
 pell_spmv_cuda.launches = 0           # kernel launches since the last reset

@@ -116,10 +116,11 @@ def sell_from_windowed(vals, c16, xbase_row, meta):
     return _compact(vals, rel_col, xbase_row, tuple(sorted(meta.items())))
 
 
-def sell_spmv_reference(sell, meta_items, b):
+def sell_spmv_reference(sell, meta_items, b, out=None):
     """Plain version of ``csrc/sell_spmv.cu``: every stream entry's
     product added to its row, in stream order (so each row in slab
-    order)."""
+    order).  With ``out`` the result is copied into it and ``out``
+    returned."""
     meta = dict(meta_items)
     sv, sc, sp, xbase = (sell[key] for key in STREAM)
     n_slices = meta["n_slices"]
@@ -132,12 +133,13 @@ def sell_spmv_reference(sell, meta_items, b):
     y = torch.zeros((n_slices * SLICE, b.shape[1]), dtype=b.dtype,
                     device=b.device)
     y.index_add_(0, row, sv.to(b.dtype)[:, None] * b[col])
-    return y[:meta["n"]]
+    return y[:meta["n"]] if out is None else out.copy_(y[:meta["n"]])
 
 
-def prepare(sell, meta_items, b, name):
+def prepare(sell, meta_items, b, name, out=None):
     """Check that ``sell`` and ``b`` fit the kernel and return the (n, k)
-    output; raises ``ValueError`` on what the kernel does not take."""
+    output (``out`` when given); raises ``ValueError`` on what the kernel
+    does not take."""
     meta = dict(meta_items)
     n, m, n_slices = meta["n"], meta["m"], meta["n_slices"]
     sv, sc, sp, xbase = (sell[key] for key in STREAM)
@@ -156,7 +158,14 @@ def prepare(sell, meta_items, b, name):
         raise ValueError(f"{name}: stream and b must share one device")
     if not all(t.is_contiguous() for t in (sv, sc, sp, xbase, b)):
         raise ValueError(f"{name}: stream and b must be contiguous")
-    return torch.empty((n, b.shape[1]), dtype=b.dtype, device=b.device)
+    if out is None:
+        return torch.empty((n, b.shape[1]), dtype=b.dtype, device=b.device)
+    if (tuple(out.shape) != (n, b.shape[1]) or out.dtype != b.dtype
+            or out.device != b.device or not out.is_contiguous()):
+        raise ValueError(f"{name}: out {tuple(out.shape)}/{out.dtype} on "
+                         f"{out.device} is not a contiguous "
+                         f"({n}, {b.shape[1]})/{b.dtype} on {b.device}")
+    return out
 
 
 def launch(sell, meta_items, b, y, c0):

@@ -12,6 +12,7 @@ import contextlib
 import io
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -382,17 +383,41 @@ def test_run_all_writes_every_suite(tmp_path):
 
 
 def test_distributed_raises_naming_the_queue_item():
-    with pytest.raises(NotSupportedError, match="queue 1 item 13"):
-        t_distributed.main([])
-    with pytest.raises(NotSupportedError):
-        t_main.main(["distributed"])
+    """The suite's parts share one device; parts named on two devices
+    are the multi-card item, which raises."""
+    from ginkgo_tpu_torch.distributed import Mesh, Partition, read_distributed
+    from ginkgo_tpu_torch.utils.generators import stencil_3d
+    two = Mesh(np.array([torch.device("cpu"), torch.device("meta")]),
+               ("rows",))
+    with pytest.raises(NotSupportedError, match="queue 1 item 14"):
+        read_distributed(stencil_3d(4, 4, 8, points=27),
+                         Partition.build_from_global_size_uniform(2, 128),
+                         two)
+
+
+def test_distributed_key_tree():
+    """The weak-scaling entries: the reference's keys, rows and nonzeros
+    (the reference on its 8 virtual CPU devices, the port's parts on the
+    host, ``device_pool`` saying so)."""
+    from ginkgo_tpu.benchmark import distributed as j_distributed
+    argv = ["-devices", "1,2,4", "-base_edge", "6", "-comm",
+            "neighborhood"] + FAST
+    ref, port = run_both(j_distributed, t_distributed, argv)
+    assert [sorted(e) for e in port] == [sorted(e) for e in ref]
+    for r, t in zip(ref, port):
+        assert {k: t[k] for k in ("devices", "rows", "nonzeros", "comm")} \
+            == {k: r[k] for k in ("devices", "rows", "nonzeros", "comm")}
+        assert t["time"] > 0 and t["nnz_per_s"] > 0
+        assert t["device_pool"] == f"cpu (all {t['devices']} parts on one " \
+            "device)"
+    assert port[0]["weak_scaling_efficiency"] == 1.0
 
 
 def test_suites_need_a_device(monkeypatch):
     """No ``-device``: the card, and a raise without one."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for mod in (t_spmv, t_solver, t_preconditioner, t_blas, t_sparse_blas,
-                t_conversion, t_statistics):
+                t_conversion, t_statistics, t_distributed):
         with pytest.raises(RuntimeError, match="CUDA device by default"):
             mod.main(cases(TINY))
     with pytest.raises(RuntimeError, match="CUDA device by default"):

@@ -17,7 +17,6 @@ import ginkgo_tpu as gt
 from ginkgo_tpu.config import parse as jparse
 from ginkgo_tpu.config.parse import _type_table as jax_type_table
 from ginkgo_tpu_torch import Csr
-from ginkgo_tpu_torch.base.exceptions import NotSupportedError
 from ginkgo_tpu_torch.base.matrix_data import MatrixData
 from ginkgo_tpu_torch.config import (parse, parse_json, parse_yaml, pnode,
                                      registry, type_descriptor)
@@ -29,7 +28,7 @@ from ginkgo_tpu_torch.log import logger as tlog
 from ginkgo_tpu_torch.solver import Cg
 from ginkgo_tpu_torch.stop import Iteration, ResidualNorm, Time
 from ginkgo_tpu_torch.utils.generators import (generate_random_matrix,
-                                               make_spd)
+                                               make_spd, stencil_2d)
 
 
 def _data(n=30, seed=0):
@@ -79,8 +78,6 @@ def test_type_table_builds_the_ports_classes():
     port, ref = _type_table(), jax_type_table()
     assert set(port) == set(ref)
     for name in sorted(ref):
-        if name == "preconditioner::Schwarz":
-            continue
         j = ref[name](**_table_kwargs(name, jparse))
         t = port[name](**_table_kwargs(name, parse))
         assert type(t).__module__.startswith("ginkgo_tpu_torch."), name
@@ -89,8 +86,14 @@ def test_type_table_builds_the_ports_classes():
 
 
 def test_schwarz_raises_until_the_distributed_tier():
-    with pytest.raises(NotSupportedError, match="queue 1 item 13"):
-        parse({"type": "preconditioner::Schwarz"})
+    """``preconditioner::Schwarz`` builds the distributed tier's factory,
+    which generates from a distributed operator only (a plain ``Csr``
+    raises, as in the reference)."""
+    from ginkgo_tpu_torch.distributed import Schwarz
+    fac = parse({"type": "preconditioner::Schwarz"})
+    assert isinstance(fac, Schwarz)
+    with pytest.raises(AttributeError):
+        fac.generate(Csr.from_data(stencil_2d(4, points=5), device="cpu"))
 
 
 def test_type_descriptor():

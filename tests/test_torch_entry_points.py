@@ -76,3 +76,18 @@ def test_entry_runs_on_the_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device by default"):
         graft_entry_torch.entry()
+
+
+def test_dryrun_multichip_on_the_host():
+    """The reference's ``dryrun_multichip`` checks (Schwarz-CG,
+    neighborhood-comm CG, the 2-D CG, the packed-local BiCGSTAB, each
+    against its numpy oracle) over 8 parts on the host; no device: the
+    card, and a raise without one."""
+    graft_entry_torch.dryrun_multichip(8, device="cpu")
+    graft_entry_torch.dryrun_multichip(2, device="cpu")
+
+
+def test_dryrun_multichip_runs_on_the_card_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device by default"):
+        graft_entry_torch.dryrun_multichip(8)

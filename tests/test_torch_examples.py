@@ -90,10 +90,9 @@ def test_every_example_is_ported():
     ported = {COUNTERPART.get(p.stem, p.stem) for p in EXAMPLES}
     reference = {p.stem for p in (REPO / "examples").glob("*.py")
                  if p.stem != "_example_setup"}
-    assert reference - ported == {"distributed_solver",
-                                  "distributed_multigrid"}
+    assert reference - ported == set()
     assert ported <= reference
-    assert len(EXAMPLES) == 22
+    assert len(EXAMPLES) == 24
 
 
 @pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.stem)
