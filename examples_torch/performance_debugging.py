@@ -1,5 +1,7 @@
-"""performance-debugging + ginkgo-overhead examples: ProfilerHook summary
-table of operation ranges, plus the library's overhead on an apply: the
+"""performance-debugging + ginkgo-overhead examples: ProfilerHook's summary
+of the library's spans (the matrix's planning and upload, each solve, its
+iterations, checks, host reads and steps; inclusive and self host time)
+and its host-read counter, plus the library's overhead on an apply: the
 public ``apply`` (rank and dimension checks, the logger hook) against the
 operator's bare ``_apply`` on the same input, each call ended by a sync."""
 
@@ -35,16 +37,19 @@ def _per_call(fn, dev, reps=10):
 def main(device=None):
     dev = device_of(device)
     data = stencil_2d(16, points=5)
-    A = gtt.Csr.from_data(data, device=dev)
-    b = torch.ones(A.shape[0], dtype=DTYPE, device=dev)
     with capture(ProfilerHook()) as prof:
+        A = gtt.Csr.from_data(data, device=dev)
+        b = torch.ones(A.shape[0], dtype=DTYPE, device=dev)
         solver = Cg.build(criteria=Iteration(200) | ResidualNorm(1e-9)
                           ).generate(A)
         for _ in range(3):
             solver.apply(b)
-    summary = prof.write_summary()
-    print(summary)
-    assert "Cg" in summary
+    print(prof.write_summary())
+    summary = prof.create_summary()
+    assert summary["solver.cg"][0] == 3 and "setup.plan" in summary
+    reads = prof.recording.counters["host_reads"]
+    iterations = summary["loop.iteration"][0]
+    print(f"{reads} host reads over {iterations} iterations")
 
     # ginkgo-overhead analog: what the public apply adds to the kernel call
     b2 = b[:, None]

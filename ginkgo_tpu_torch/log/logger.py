@@ -55,17 +55,25 @@ class Logger:
     def wants(self, event: str) -> bool:
         return event in self.events_mask
 
+    def attach(self):
+        """Called when the logger is added (``add_logger``, ``capture``)."""
+
+    def detach(self):
+        """Called when the logger is removed."""
+
 
 _global_loggers: list[Logger] = []
 
 
 def add_logger(logger: Logger):
     _global_loggers.append(logger)
+    logger.attach()
     return logger
 
 
 def remove_logger(logger: Logger):
     _global_loggers.remove(logger)
+    logger.detach()
 
 
 @contextlib.contextmanager

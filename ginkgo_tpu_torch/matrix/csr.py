@@ -39,6 +39,7 @@ from ..base.dtypes import as_torch_dtype
 from ..base.linop import LinOp, map_tensors
 from ..base.matrix_data import MatrixData
 from ..device import resolve_device
+from ..log.profiler_hook import span
 from ..ops.registry import lookup
 from ..ops.spmv_sell import sell_from_packed
 from .coo import Coo, pad_nnz
@@ -189,11 +190,14 @@ class Csr(LinOp):
         """Plan ``data`` on the host and place it on ``device`` (``None``:
         the CUDA device; raises when there is none)."""
         device = resolve_device(device)
-        return cls._from_canonical_data(data.canonical(), dtype=dtype,
-                                        index_dtype=index_dtype,
-                                        strategy=strategy,
-                                        pad_multiple=pad_multiple,
-                                        device=device)
+        with span("setup.from_data"):
+            with span("setup.canonical"):
+                canonical = data.canonical()
+            return cls._from_canonical_data(canonical, dtype=dtype,
+                                            index_dtype=index_dtype,
+                                            strategy=strategy,
+                                            pad_multiple=pad_multiple,
+                                            device=device)
 
     @classmethod
     def _from_canonical_data(cls, d: MatrixData, dtype=None,
@@ -209,26 +213,28 @@ class Csr(LinOp):
         vdtype, host_dtype = host_value_types(d.values.dtype, dtype)
         values_np = d.values.astype(host_dtype, copy=False)
 
-        (strategy, diag_offsets, band_meta, diag_values,
-         tail, pell) = _process_strategy(strategy, d, values_np)
+        with span("setup.plan"):
+            (strategy, diag_offsets, band_meta, diag_values,
+             tail, pell) = _process_strategy(strategy, d, values_np)
 
-        cap = pad_nnz(nnz, pad_multiple)
-        rows = np.full(cap, n, np.int64)
-        cols = np.zeros(cap, np.int64)
-        vals = np.zeros(cap, values_np.dtype)
-        rows[:nnz] = d.row_idx
-        cols[:nnz] = d.col_idx
-        vals[:nnz] = values_np
-        row_ptr = d.row_ptrs()
-        aux_kw = aux_device_kw(n, vdtype, index_dtype, tail, pell, device)
-        return cls(row_ptr=_upload(row_ptr, device, index_dtype),
-                   col_idx=_upload(cols, device, index_dtype),
-                   values=_upload(vals, device, vdtype),
-                   row_idx=_upload(rows, device, index_dtype),
-                   shape=(n, m), nnz=nnz, strategy=strategy,
-                   diag_offsets=diag_offsets, band_meta=band_meta,
-                   diag_values=None if diag_values is None
-                   else _upload(diag_values, device, vdtype), **aux_kw)
+        with span("setup.upload"):
+            cap = pad_nnz(nnz, pad_multiple)
+            rows = np.full(cap, n, np.int64)
+            cols = np.zeros(cap, np.int64)
+            vals = np.zeros(cap, values_np.dtype)
+            rows[:nnz] = d.row_idx
+            cols[:nnz] = d.col_idx
+            vals[:nnz] = values_np
+            row_ptr = d.row_ptrs()
+            aux_kw = aux_device_kw(n, vdtype, index_dtype, tail, pell, device)
+            return cls(row_ptr=_upload(row_ptr, device, index_dtype),
+                       col_idx=_upload(cols, device, index_dtype),
+                       values=_upload(vals, device, vdtype),
+                       row_idx=_upload(rows, device, index_dtype),
+                       shape=(n, m), nnz=nnz, strategy=strategy,
+                       diag_offsets=diag_offsets, band_meta=band_meta,
+                       diag_values=None if diag_values is None
+                       else _upload(diag_values, device, vdtype), **aux_kw)
 
     @classmethod
     def from_dense(cls, dense, **kwargs):

@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from ..base.linop import LinOp, as_multivector
+from ..log.profiler_hook import count, span
 from ..matrix.dense import compute_norm2
 from ..matrix.identity import Identity
 from ..stop.criterion import Criterion, PerLane, as_criterion, has_host_side
@@ -48,6 +49,15 @@ def _tree_map(fn, *trees):
     if isinstance(first, (tuple, list)):
         return type(first)(_tree_map(fn, *items) for items in zip(*trees))
     return fn(*trees)
+
+
+def host_read(t: torch.Tensor):
+    """The value of the one-element tensor ``t`` on the host: the solve
+    path's device-to-host reads all go through here, so a recording spans
+    (``loop.host_read``) and counts (``host_reads``) each."""
+    with span("loop.host_read"):
+        count("host_reads")
+        return t.item()
 
 
 def mask_cols(active, new, old):
@@ -160,20 +170,28 @@ def run_iteration_loop(step_fn, make_check_args, state0, criterion: Criterion,
         state = (new_state if single_col else
                  mask_cols(carry["active"], new_state, carry["state"]))
         it = carry["it"] + 1
-        args = make_check_args(state, it)
-        stop, conv, crit = criterion.check(carry["crit"], args)
-        newly = carry["active"] & stop
-        if host_side:
-            _log_iteration(it, stop, conv)
-        return dict(
-            state=state, crit=crit, it=it,
-            active=carry["active"] & ~stop,
-            converged=carry["converged"] | (newly & conv),
-            iters=carry["iters"] + carry["active"].to(torch.int32))
+        with span("loop.check"):
+            args = make_check_args(state, it)
+            stop, conv, crit = criterion.check(carry["crit"], args)
+            newly = carry["active"] & stop
+            if host_side:
+                _log_iteration(it, stop, conv)
+            return dict(
+                state=state, crit=crit, it=it,
+                active=carry["active"] & ~stop,
+                converged=carry["converged"] | (newly & conv),
+                iters=carry["iters"] + carry["active"].to(torch.int32))
+
+    def more(carry):
+        """Whether the loop takes another trip (the one host read)."""
+        return carry["it"] < cap and host_read(carry["active"].any())
 
     def run(carry):
-        while carry["it"] < cap and bool(carry["active"].any()):
-            carry = body(carry)
+        go = more(carry)
+        while go:
+            with span("loop.iteration"):
+                carry = body(carry)
+                go = more(carry)
         return carry
 
     if host_side or (restart_fn is None and not trace):
@@ -181,35 +199,39 @@ def run_iteration_loop(step_fn, make_check_args, state0, criterion: Criterion,
     if trace:
         history = [args0.get_residual_norm()]
         carry = carry0
-        while carry["it"] < cap and bool(carry["active"].any()):
-            carry = body(carry)
-            history.append(make_check_args(carry["state"], carry["it"])
-                           .get_residual_norm())
+        go = more(carry)
+        while go:
+            with span("loop.iteration"):
+                carry = body(carry)
+                history.append(make_check_args(carry["state"], carry["it"])
+                               .get_residual_norm())
+                go = more(carry)
         history = torch.stack(history)
         pad = history[-1:].expand(cap + 1 - history.shape[0], k)
         return carry, torch.cat([history, pad])
 
     def audit(oc):
         c = run(oc["carry"])
-        s2 = restart_fn(c["state"])
-        args = make_check_args(s2, c["it"])
-        _, conv_t, crit_t = criterion.check(c["crit"], args)
-        # estimate-claimed convergence the true residual contradicts
-        bogus = c["converged"] & ~conv_t
-        out_of = oc["audits"] >= verify_retries     # a Python bool
-        redo = bogus & (not out_of)
-        state = s2 if single_col else mask_cols(redo, s2, c["state"])
-        c2 = dict(c, state=state, crit=crit_t, active=redo,
-                  converged=c["converged"] & ~bogus)
-        return dict(carry=c2,
-                    stagnated=oc["stagnated"] | (bogus & out_of),
-                    audits=oc["audits"] + 1)
+        with span("loop.restart"):
+            s2 = restart_fn(c["state"])
+            args = make_check_args(s2, c["it"])
+            _, conv_t, crit_t = criterion.check(c["crit"], args)
+            # estimate-claimed convergence the true residual contradicts
+            bogus = c["converged"] & ~conv_t
+            out_of = oc["audits"] >= verify_retries     # a Python bool
+            redo = bogus & (not out_of)
+            state = s2 if single_col else mask_cols(redo, s2, c["state"])
+            c2 = dict(c, state=state, crit=crit_t, active=redo,
+                      converged=c["converged"] & ~bogus)
+            return dict(carry=c2,
+                        stagnated=oc["stagnated"] | (bogus & out_of),
+                        audits=oc["audits"] + 1)
 
     oc = audit(dict(carry=carry0,
                     stagnated=torch.zeros((k,), dtype=torch.bool,
                                           device=b.device),
                     audits=0))
-    while oc["carry"]["it"] < cap and bool(oc["carry"]["active"].any()):
+    while more(oc["carry"]):
         oc = audit(oc)
     return dict(oc["carry"], stagnated=oc["stagnated"]), None
 
@@ -250,19 +272,23 @@ def _run_lanes(step_fn, make_check_args, state0, criterion, b, r0_norm,
         state = mask_cols(moving, step_fn(carry["state"], moving),
                           carry["state"])
         it = carry["it"] + run.to(torch.int32)
-        stop, conv, crit = criterion.check(
-            carry["crit"], make_check_args(state, cols(it)))
-        stop = stop & run_cols
-        return dict(state=state, crit=crit, it=it,
-                    active=carry["active"] & ~stop,
-                    converged=carry["converged"] | (moving & stop & conv),
-                    iters=carry["iters"] + moving.to(torch.int32))
+        with span("loop.check"):
+            stop, conv, crit = criterion.check(
+                carry["crit"], make_check_args(state, cols(it)))
+            stop = stop & run_cols
+            return dict(state=state, crit=crit, it=it,
+                        active=carry["active"] & ~stop,
+                        converged=carry["converged"] | (moving & stop & conv),
+                        iters=carry["iters"] + moving.to(torch.int32))
 
     def run_all(carry):
         run = running(carry)
-        while bool(run.any()):
-            carry = body(carry, run)
-            run = running(carry)
+        go = host_read(run.any())
+        while go:
+            with span("loop.iteration"):
+                carry = body(carry, run)
+                run = running(carry)
+                go = host_read(run.any())
         return carry
 
     if restart_fn is None:
@@ -271,19 +297,21 @@ def _run_lanes(step_fn, make_check_args, state0, criterion, b, r0_norm,
     def audit(oc, part):
         """One audit round for the lanes of ``part``."""
         c = run_all(oc["carry"])
-        part_cols = cols(part)
-        s2 = restart_fn(c["state"])
-        _, conv_t, crit_t = criterion.check(
-            c["crit"], make_check_args(s2, cols(c["it"])))
-        bogus = c["converged"] & ~conv_t & part_cols
-        out_of = cols(oc["audits"] >= verify_retries)
-        redo = bogus & ~out_of
-        take = part_cols if w == 1 else redo
-        c2 = dict(c, state=mask_cols(take, s2, c["state"]), crit=crit_t,
-                  active=torch.where(part_cols, redo, c["active"]),
-                  converged=c["converged"] & ~bogus)
-        return dict(carry=c2, stagnated=oc["stagnated"] | (bogus & out_of),
-                    audits=oc["audits"] + part.to(torch.int32))
+        with span("loop.restart"):
+            part_cols = cols(part)
+            s2 = restart_fn(c["state"])
+            _, conv_t, crit_t = criterion.check(
+                c["crit"], make_check_args(s2, cols(c["it"])))
+            bogus = c["converged"] & ~conv_t & part_cols
+            out_of = cols(oc["audits"] >= verify_retries)
+            redo = bogus & ~out_of
+            take = part_cols if w == 1 else redo
+            c2 = dict(c, state=mask_cols(take, s2, c["state"]), crit=crit_t,
+                      active=torch.where(part_cols, redo, c["active"]),
+                      converged=c["converged"] & ~bogus)
+            return dict(carry=c2,
+                        stagnated=oc["stagnated"] | (bogus & out_of),
+                        audits=oc["audits"] + part.to(torch.int32))
 
     oc = audit(dict(carry=carry0,
                     stagnated=torch.zeros((k,), dtype=torch.bool,
@@ -292,7 +320,7 @@ def _run_lanes(step_fn, make_check_args, state0, criterion, b, r0_norm,
                                        device=dev)),
                torch.ones((lanes,), dtype=torch.bool, device=dev))
     part = running(oc["carry"])
-    while bool(part.any()):
+    while host_read(part.any()):
         oc = audit(oc, part)
         part = running(oc["carry"])
     return dict(oc["carry"], stagnated=oc["stagnated"])
@@ -347,20 +375,31 @@ def run_restarted_loop(inner_step, cycle_done, restart_fn, make_check_args,
         state = (new_state if single_col else
                  mask_cols(carry["active"], new_state, carry["state"]))
         it = carry["it"] + 1
-        args = make_check_args(state, it)
-        stop, conv, crit = criterion.check(carry["crit"], args)
-        newly = carry["active"] & stop
-        return dict(
-            carry, state=state, crit=crit, it=it,
-            active=carry["active"] & ~stop,
-            # provisional: estimate-based, audited at the next restart
-            converged=carry["converged"] | (newly & conv),
-            iters=carry["iters"] + carry["active"].to(torch.int32))
+        with span("loop.check"):
+            args = make_check_args(state, it)
+            stop, conv, crit = criterion.check(carry["crit"], args)
+            newly = carry["active"] & stop
+            return dict(
+                carry, state=state, crit=crit, it=it,
+                active=carry["active"] & ~stop,
+                # provisional: estimate-based, audited at the next restart
+                converged=carry["converged"] | (newly & conv),
+                iters=carry["iters"] + carry["active"].to(torch.int32))
+
+    def inner_more(carry):
+        return (carry["it"] < cap and not cycle_done(carry["state"])
+                and host_read(carry["active"].any()))
 
     def outer_body(carry):
-        while (carry["it"] < cap and not cycle_done(carry["state"])
-               and bool(carry["active"].any())):
-            carry = inner_body(carry)
+        go = inner_more(carry)
+        while go:
+            with span("loop.iteration"):
+                carry = inner_body(carry)
+                go = inner_more(carry)
+        with span("loop.restart"):
+            return restart_cycle(carry)
+
+    def restart_cycle(carry):
         # columns whose estimate-based stop awaits a true-residual audit
         pending = carry["converged"] & ~carry["verified"]
         sel = carry["active"] | pending
@@ -395,7 +434,7 @@ def run_restarted_loop(inner_step, cycle_done, restart_fn, make_check_args,
     def outer_cond(carry):
         pending = carry["converged"] & ~carry["verified"]
         work = carry["active"].any() if carry["it"] < cap else False
-        return bool(work | pending.any())     # one host read
+        return host_read(work | pending.any())
 
     while outer_cond(carry):
         carry = outer_body(carry)
@@ -407,8 +446,8 @@ def _log_iteration(it, stop, conv):
     if _log.has_loggers():
         _log.dispatch(_log.ITERATION_COMPLETE, iteration=int(it))
         _log.dispatch(_log.CRITERION_CHECK_COMPLETED, iteration=int(it),
-                      num_stopped=int(stop.sum()),
-                      num_converged=int((conv & stop).sum()))
+                      num_stopped=host_read(stop.sum()),
+                      num_converged=host_read((conv & stop).sum()))
 
 
 def finish(final, history, x, r, squeeze):

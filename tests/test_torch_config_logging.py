@@ -23,7 +23,7 @@ from ginkgo_tpu_torch.config import (parse, parse_json, parse_yaml, pnode,
 from ginkgo_tpu_torch.config.parse import _type_table
 from ginkgo_tpu_torch.log import (Convergence, Logger, PerformanceHint,
                                   ProfilerHook, Record, SolverProgress,
-                                  Stream, annotate, capture, trace_to)
+                                  Stream, capture, record, span, trace_to)
 from ginkgo_tpu_torch.log import logger as tlog
 from ginkgo_tpu_torch.solver import Cg
 from ginkgo_tpu_torch.stop import Iteration, ResidualNorm, Time
@@ -303,16 +303,20 @@ def test_profiler_hook_summary():
         op.apply(_ones())
         op.apply(_ones())
     summary = prof.create_summary()
-    assert any(cnt >= 2 for cnt, _ in summary.values())
-    assert summary["Cg"][0] == 1              # one generate
+    assert summary["solver.cg"][0] == 2       # two solves
+    assert summary["loop.iteration"][0] >= 2
+    assert all(0 <= own <= tot for _, tot, own in summary.values())
+    assert prof.recording.counters["host_reads"] == \
+        summary["loop.host_read"][0]
     table = prof.write_summary(io.StringIO())
-    assert "| range |" in table and "| Cg | 1 |" in table
+    assert "| range | count | total [s] | self [s] |" in table
+    assert "| solver.cg | 2 |" in table and "| host_reads |" in table
 
 
 def test_annotate_and_trace_to(tmp_path):
     logdir = str(tmp_path / "trace")
-    with trace_to(logdir):
-        with annotate("ginkgo_test_range"):
+    with trace_to(logdir), record():
+        with span("ginkgo_test_range"):
             _spd(seed=8).apply(_ones())
     files = os.listdir(logdir)
     assert len(files) == 1 and files[0].endswith(".pt.trace.json")
