@@ -702,6 +702,53 @@ def phase_kernel_a(A):
                 bound_ms=bms, bound_by=by, library_ms=lib)
 
 
+WIDE_K = 16   # the benchmark's block of right-hand sides (hpcg27-cg-16rhs)
+
+
+def phase_kernel_a_wide(A):
+    """Kernel A's wide instance at the nx=160 stencil and k = WIDE_K: one
+    launch, y bit for bit the narrow instance's column by column and
+    within TOL of the plain version, timed beside its bound, the plain
+    version and cuSPARSE's SpMM."""
+    n = A.shape[0]
+    offsets, meta = A.diag_offsets, dict(A.band_meta)
+    x = torch.randn((n, WIDE_K), dtype=torch.float32, device=DEV)
+    before = spmv_banded.dia_spmv_wide_cuda.launches
+    y = spmv_banded.dia_spmv_cuda(offsets, A.diag_values, meta, x)
+    torch.cuda.synchronize()
+    launches = spmv_banded.dia_spmv_wide_cuda.launches - before
+    want = spmv_banded.dia_spmv_reference(offsets, A.diag_values, meta, x)
+    err, scale = rel_err(y, want)
+    same = all(torch.equal(y[:, c:c + 1], spmv_banded.dia_spmv_cuda(
+        offsets, A.diag_values, meta, x[:, c:c + 1].contiguous()))
+        for c in range(WIDE_K))
+    del want
+    if not (err <= TOL[torch.float32] and same and launches == 1):
+        raise AssertionError(f"dia_spmv wide at nx={BANDED_NX}, k={WIDE_K}: "
+                             f"rel err {err:.3e}, bit for bit per column "
+                             f"{same}, {launches} wide launches")
+    ms = time_ms(lambda: spmv_banded.dia_spmv_cuda(
+        offsets, A.diag_values, meta, x), 50, queue_ahead=True)
+    plain = time_ms(lambda: spmv_banded.dia_spmv_reference(
+        offsets, A.diag_values, meta, x), 3)
+    lib, ylib = library_ms(A, x, 20)
+    lib_err, _ = rel_err(ylib, y)
+    entries = int((A.diag_values != 0).sum())
+    nbytes = entries * A.diag_values.element_size() + 2 * n * WIDE_K * 4
+    bms, by = bound(nbytes, 2 * entries * WIDE_K)
+    say("kernel_a_wide", n=n, D=len(offsets), k=WIDE_K, launches=launches,
+        entries=entries, ms=ms, plain_ms=plain, library_ms=lib,
+        bound_ms=bms, bound_by=by, bytes=nbytes,
+        effective_GBps=nbytes / (ms * 1e-3) / 1e9, roofline_pct=100 * bms / ms,
+        max_abs_err=err * scale, max_rel_err=err, bitwise_per_column=same,
+        library_rel_err=lib_err)
+    return dict(name="dia_spmv_wide", route="cuda",
+                source="ginkgo_tpu_torch/ops/csrc/dia_spmv.cu",
+                replaces="ginkgo_tpu/ops/spmv_pallas.py:98",
+                max_abs_err=err * scale, ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=lib)
+
+
 # -- kernel B -----------------------------------------------------------------
 def card_slab(A):
     """A copy on the card of the packed slab that ``A`` keeps on the host
@@ -1040,6 +1087,7 @@ def phase_kernel_c(op, L):
 
 # -- main path ----------------------------------------------------------------
 COUNTERS = {"dia_spmv": spmv_banded.dia_spmv_cuda,
+            "dia_spmv_wide": spmv_banded.dia_spmv_wide_cuda,
             "dia_spmv_complex": spmv_banded.dia_spmv_complex_cuda,
             "pell_spmv": spmv_packed.pell_spmv_cuda,
             "pell_spmv_complex": spmv_packed.pell_spmv_complex_cuda,
@@ -2468,11 +2516,12 @@ def build_format(name, data, **kw):
     return op, time.perf_counter() - t0
 
 
-def check_format(label, name, op, setup_s, strategy, kernel, ref):
+def check_format(label, name, op, setup_s, strategy, kernels, ref):
     """``op`` (built from the data ``ref``, the ``Csr``, was built from)
     must carry a ``strategy`` plan; its applies at k = 1 and 3 through the
     port's entry point are held against the plain COO product of ``ref``'s
-    entries in f64 on the card, and must launch ``kernel`` once each.
+    entries in f64 on the card, and must launch ``kernels[0]`` once at
+    k = 1 and ``kernels[1]`` once at k = 3.
     Returns the counted launches and the format's report, with one apply
     timed as kernel A is, beside ``ref``'s apply in the same call."""
     got = None if op.fast_op is None else op.fast_op.strategy
@@ -2491,9 +2540,11 @@ def check_format(label, name, op, setup_s, strategy, kernel, ref):
         want = coo_spmv(ref.row_idx, ref.col_idx, vals64, x.double(), n)
         assert y.shape == want.shape and bool(torch.isfinite(y).all())
         errs.append(rel_err(y, want)[0])
-    if launches[kernel] != len(xs):
-        raise AssertionError(f"{label} {name}: {launches[kernel]} launches "
-                             f"of {kernel} for {len(xs)} applies")
+    counts = {kernel: launches[kernel] for kernel in kernels}
+    if counts != {kernel: kernels.count(kernel) for kernel in kernels}:
+        raise AssertionError(f"{label} {name}: launches {counts} for the "
+                             f"applies at k = 1 and 3, not one each of "
+                             f"{kernels}")
     if not max(errs) <= TOL[torch.float32]:
         raise AssertionError(f"{label} {name}: rel err {max(errs):.3e} "
                              f"against the f64 COO product")
@@ -2501,7 +2552,8 @@ def check_format(label, name, op, setup_s, strategy, kernel, ref):
     ms = time_ms(lambda: op.apply(x), 50, queue_ahead=True)
     csr_ms = time_ms(lambda: ref.apply(x), 50, queue_ahead=True)
     return launches, dict(setup_s=setup_s, apply_ms=ms, csr_apply_ms=csr_ms,
-                          launches=launches[kernel], max_rel_err=max(errs),
+                          launches=sum(counts.values()),
+                          max_rel_err=max(errs),
                           card_bytes=card_bytes(op),
                           plan_card_bytes=card_bytes(op.fast_op))
 
@@ -2518,8 +2570,8 @@ def main_formats_banded(small_data, small_A):
     for name in FORMAT_BUILDS:
         op, setup_s = build_format(name, small_data)
         launches, report[name] = check_format(
-            "main_formats_banded", name, op, setup_s, "banded", "dia_spmv",
-            small_A)
+            "main_formats_banded", name, op, setup_s, "banded",
+            ("dia_spmv", "dia_spmv_wide"), small_A)
         report[name]["nx"] = SMALL_FORMAT_NX
         runs.append(launches)
         if name == "Ell":
@@ -2644,8 +2696,8 @@ def main_formats_packed(d, A, bare_iters):
               else {})
         op, setup_s = build_format(name, d, **kw)
         launches, report[name] = check_format(
-            "main_formats_packed", name, op, setup_s, "packed", "pell_spmv",
-            A)
+            "main_formats_packed", name, op, setup_s, "packed",
+            ("pell_spmv", "pell_spmv"), A)
         runs.append(launches)
         if name == "Hybrid":
             H = op
@@ -2754,7 +2806,7 @@ def small_formats_match_cpu():
                                   else 1))
             x = np.random.default_rng(2).standard_normal((d.shape[0], 2))
             x = x.astype(vdtype)
-            kernel = {("banded", False): "dia_spmv",
+            kernel = {("banded", False): "dia_spmv_wide",
                       ("banded", True): "dia_spmv_complex",
                       ("packed", False): "pell_spmv",
                       ("packed", True): "pell_spmv_complex"}[
@@ -4851,7 +4903,8 @@ def main() -> int:
     regenerate_launches = ilut_regenerate(Ai, Ft)
     onehot_launches = ilut_generate_onehot(Ai, Ft, plan)
 
-    kernels = [phase_kernel_a(Ab), phase_kernel_b(Ap, Ai),
+    kernels = [phase_kernel_a(Ab), phase_kernel_a_wide(Ab),
+               phase_kernel_b(Ap, Ai),
                phase_kernel_c(M.l_solver, F.l_factor),
                *phase_kernels_de(plan), phase_kernel_f(Ab.shape[0])]
     del plan

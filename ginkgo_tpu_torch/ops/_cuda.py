@@ -48,6 +48,13 @@ SIGNATURES = {
     "row_write": ("row_write_launch", [_P, _P, _L, _I, _P]),
 }
 
+# name -> {entry point: argtypes}: a library's further launchers
+MORE_ENTRIES = {
+    # kernel A's wide instance (k >= 2 real columns), dia_spmv_launch's
+    # arguments
+    "dia_spmv": {"dia_spmv_wide_launch": SIGNATURES["dia_spmv"][1]},
+}
+
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -105,10 +112,11 @@ def library(name: str) -> ctypes.CDLL:
         if not path.exists():
             build((name,))
         lib = ctypes.CDLL(str(path))
-        entry, argtypes = SIGNATURES[name]
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for entry, argtypes in (SIGNATURES[name],
+                                *MORE_ENTRIES.get(name, {}).items()):
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p

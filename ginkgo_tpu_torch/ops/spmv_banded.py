@@ -7,8 +7,11 @@ layout ``dvb (G, D, S, 128)``.  This module holds the host layout planner
 ``csrc/dia_spmv.cu``, which replaces the Pallas kernel
 ``ginkgo_tpu/ops/spmv_pallas.py::_dia_kernel``.
 
-The kernel is bounded by bytes: it streams dvb once per group of <= 8
-right-hand sides, plus x and y.  See the source for its design.
+The kernel is bounded by bytes: it streams dvb once a launch, plus x and y.
+One real column takes its narrow instance; two or more take its wide one,
+which reads dvb once for up to 16 columns and moves x and y in 16-byte
+pieces on neighbouring lanes (``kernel_instance``).  See the source for
+their design.
 
 Complex values take the same kernel instantiated for interleaved complex
 types (``dia_spmv_complex_cuda``, counted apart): it replaces the TPU's
@@ -28,7 +31,8 @@ from . import _cuda
 from .registry import register
 
 LANES = 128
-MAX_RHS = 8        # columns per kernel launch; dvb streams once per launch
+MAX_RHS = 8        # columns a launch of the narrow and complex instances
+WIDE_RHS = 16      # columns a launch of the wide instance
 
 # (value storage, vector) dtypes the kernel takes: f32 math for f32 and
 # bf16/f16 storage with f32 vectors, f64 math for f64
@@ -118,25 +122,63 @@ def _offsets_on(offsets: tuple, device: torch.device):
     return torch.tensor(offsets, dtype=torch.int32, device=device)
 
 
+def kernel_instance(k, is_complex):
+    """The instance of kernel A that takes ``k`` columns, and the columns
+    it takes a launch: complex operands the complex instantiation; one
+    real column the narrow instance (a thread a row); two or more the wide
+    one (lanes on 16-byte pieces of a row)."""
+    if is_complex:
+        return "complex", MAX_RHS
+    return ("narrow", MAX_RHS) if k == 1 else ("wide", WIDE_RHS)
+
+
+def column_chunks(k, width):
+    """(first column, columns) of each launch over ``k`` columns."""
+    return [(c0, min(width, k - c0)) for c0 in range(0, k, width)]
+
+
 @register("dia_spmv", "cuda")
 def dia_spmv_cuda(offsets, dvb, meta, b, out=None):
-    """Banded SpMV/SpMM on the CUDA kernel, one launch per <= 8 columns;
-    complex operands go to its complex instantiation.  ``out`` (optional):
-    a contiguous (n, k) tensor the kernel writes instead of a new one.
+    """Banded SpMV/SpMM on the CUDA kernel, its instance chosen by
+    ``kernel_instance``: one column launches the narrow instance here, more
+    go to ``dia_spmv_wide_cuda`` and complex operands to
+    ``dia_spmv_complex_cuda``.  ``out`` (optional): a contiguous (n, k)
+    tensor the kernel writes instead of a new one.
 
     A tensor on the CPU takes the plain version; on a CUDA device this
     launches the kernel or raises — it never falls back."""
     b = kernel_vector(dvb.dtype, b)
     if b.device.type != "cuda":
         return dia_spmv_reference(offsets, dvb, meta, b, out)
-    if b.is_complex() or dvb.is_complex():
+    instance, width = kernel_instance(b.shape[-1],
+                                      b.is_complex() or dvb.is_complex())
+    if instance == "complex":
         return dia_spmv_complex_cuda(offsets, dvb, meta, b, out)
+    if instance == "wide":
+        return dia_spmv_wide_cuda(offsets, dvb, meta, b, out)
     y = _output(offsets, dvb, meta, b, KERNEL_DTYPES, out)
     if y.numel() == 0:
         return y
-    for c0 in range(0, b.shape[1], MAX_RHS):
-        _launch(offsets, dvb, meta, b, y, c0)
+    for c0, cols in column_chunks(b.shape[1], width):
+        _launch("dia_spmv_launch", offsets, dvb, meta, b, y, c0, cols)
         dia_spmv_cuda.launches += 1
+    return y
+
+
+def dia_spmv_wide_cuda(offsets, dvb, meta, b, out=None):
+    """Banded SpMM on the kernel's wide instance (real ``KERNEL_DTYPES``),
+    one launch per <= 16 columns, each reading dvb once.
+
+    A tensor on the CPU takes the plain version; on a CUDA device this
+    launches the kernel or raises."""
+    if b.device.type != "cuda":
+        return dia_spmv_reference(offsets, dvb, meta, b, out)
+    y = _output(offsets, dvb, meta, b, KERNEL_DTYPES, out)
+    if y.numel() == 0:
+        return y
+    for c0, cols in column_chunks(b.shape[1], WIDE_RHS):
+        _launch("dia_spmv_wide_launch", offsets, dvb, meta, b, y, c0, cols)
+        dia_spmv_wide_cuda.launches += 1
     return y
 
 
@@ -153,8 +195,8 @@ def dia_spmv_complex_cuda(offsets, dvb, meta, b, out=None):
     y = _output(offsets, dvb, meta, b, COMPLEX_KERNEL_DTYPES, out)
     if y.numel() == 0:
         return y
-    for c0 in range(0, b.shape[1], MAX_RHS):
-        _launch(offsets, dvb, meta, b, y, c0)
+    for c0, cols in column_chunks(b.shape[1], MAX_RHS):
+        _launch("dia_spmv_launch", offsets, dvb, meta, b, y, c0, cols)
         dia_spmv_complex_cuda.launches += 1
     return y
 
@@ -188,22 +230,24 @@ def _output(offsets, dvb, meta, b, dtypes, out=None):
     return out
 
 
-def _launch(offsets, dvb, meta, b, y, c0):
-    """One launch for columns ``[c0, c0 + 8)`` of ``b`` into ``y``."""
+def _launch(entry, offsets, dvb, meta, b, y, c0, cols):
+    """One launch of ``entry`` for columns ``[c0, c0 + cols)`` of ``b``
+    into ``y``."""
     n, k = meta["n"], b.shape[1]
     offs = _offsets_on(tuple(int(o) for o in offsets), b.device)
     G, D, S, _ = dvb.shape
     esize = b.element_size()
-    lib = _cuda.library("dia_spmv")
+    launch = getattr(_cuda.library("dia_spmv"), entry)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
-        code = lib.dia_spmv_launch(
+        code = launch(
             _cuda.type_code(dvb.dtype), _cuda.type_code(b.dtype),
             dvb.data_ptr(), offs.data_ptr(), D, S, n,
             b.data_ptr() + c0 * esize, k, y.data_ptr() + c0 * esize, k,
-            min(MAX_RHS, k - c0), stream)
+            cols, stream)
     _cuda.check("dia_spmv", code)
 
 
-dia_spmv_cuda.launches = 0           # kernel launches since the last reset
+dia_spmv_cuda.launches = 0           # narrow launches since the last reset
+dia_spmv_wide_cuda.launches = 0      # wide launches since the last reset
 dia_spmv_complex_cuda.launches = 0   # complex launches since the last reset

@@ -70,18 +70,44 @@ def _banded(n, offsets, dev, vdtype):
     return meta, dvb.to(device=dev, dtype=vdtype)
 
 
+def _dia_launches():
+    return (spmv_banded.dia_spmv_cuda.launches,
+            spmv_banded.dia_spmv_wide_cuda.launches)
+
+
+def _block(n, k, dtype, dev, shifted):
+    """A contiguous (n, k) tensor; ``shifted``: one element past the start
+    of its buffer, so its base is not 16-byte aligned."""
+    buf = torch.randn(n * k + 1, dtype=dtype, device=dev)
+    return buf[1:].view(n, k) if shifted else buf[:-1].view(n, k)
+
+
 @pytest.mark.parametrize("vdtype", VDTYPES, ids=str)
-@pytest.mark.parametrize("k", [1, 3, 8, 9])
-def test_dia_kernel_matches_plain(dev, vdtype, k):
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8, 9, 15, 16, 17, 32, 33])
+@pytest.mark.parametrize("base", ["aligned", "shifted"])
+def test_dia_kernel_matches_plain(dev, vdtype, k, base):
+    """Kernel A against its plain version, n = 3000 (not a multiple of 128)
+    with offsets that leave [0, n) at both ends: one column takes one
+    narrow launch; k >= 2 take ceil(k / 16) wide launches, whose y is the
+    narrow instance's bit for bit, column by column, with x and y at
+    aligned or shifted bases."""
     n, offsets = 3000, (-257, -129, -1, 0, 1, 129, 257)
     meta, dvb = _banded(n, offsets, dev, vdtype)
-    x = torch.randn((n, k), dtype=_xdtype(vdtype), device=dev)
-    before = spmv_banded.dia_spmv_cuda.launches
-    y = spmv_banded.dia_spmv_cuda(offsets, dvb, meta, x)
+    x = _block(n, k, _xdtype(vdtype), dev, base == "shifted")
+    out = _block(n, k, _xdtype(vdtype), dev, base == "shifted")
+    before = _dia_launches()
+    y = spmv_banded.dia_spmv_cuda(offsets, dvb, meta, x, out=out)
     torch.cuda.synchronize()
-    assert spmv_banded.dia_spmv_cuda.launches - before == -(-k // 8)
+    after = _dia_launches()
+    assert (after[0] - before[0], after[1] - before[1]) == \
+        ((1, 0) if k == 1 else (0, -(-k // 16)))
+    assert y is out
     want = spmv_banded.dia_spmv_reference(offsets, dvb, meta, x)
     assert _rel_err(y, want) <= TOL[vdtype]
+    for c in range(k if k > 1 else 0):
+        col = spmv_banded.dia_spmv_cuda(offsets, dvb, meta,
+                                        x[:, c:c + 1].contiguous())
+        assert torch.equal(y[:, c:c + 1], col), c
 
 
 def _packed_csr(dev):
@@ -890,7 +916,7 @@ def test_format_plans_apply_as_csr_bit_for_bit(dev, fmt, kind, vdtype):
     A = gtt.Csr.from_data(d, device=dev)
     F = getattr(gtt, fmt).from_data(d, device=dev)
     assert A.strategy == F.fast_op.strategy == kind
-    counter = {("banded", np.float32): spmv_banded.dia_spmv_cuda,
+    counter = {("banded", np.float32): spmv_banded.dia_spmv_wide_cuda,
                ("banded", np.complex64): spmv_banded.dia_spmv_complex_cuda,
                ("packed", np.float32): spmv_packed.pell_spmv_cuda,
                ("packed", np.complex64): spmv_packed.pell_spmv_complex_cuda

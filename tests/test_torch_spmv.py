@@ -17,6 +17,9 @@ Tolerances: f64 rtol 1e-12 and f32 rtol 1e-5 relative to the largest |y|
 widened to f32 on both sides, so it is held at the f32 tolerance.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -112,6 +115,80 @@ def test_dia_kernel_index_math(n, offsets):
     want = spmv_banded.dia_spmv_reference(offsets, torch.from_numpy(dvb),
                                           meta, torch.from_numpy(x))
     _close(emulate_dia_kernel(offsets, dvb, meta, x), want.numpy(), 1e-12)
+
+
+def _wide_run():
+    """kWideRun of csrc/dia_spmv.cu: the rows a thread of the wide instance
+    walks."""
+    src = (Path(spmv_banded.__file__).parent / "csrc" / "dia_spmv.cu"
+           ).read_text()
+    return int(re.search(r"constexpr int kWideRun = (\d+);", src).group(1))
+
+
+def emulate_dia_wide_kernel(offsets, dvb, meta, x, run):
+    """The wide instance of csrc/dia_spmv.cu in numpy: the thread of slot t
+    walks rows t*run .. t*run + run - 1 (inside one 128-row group), reads
+    their band values from one run of dvb, and keeps x[i + off] of its rows
+    in a window that slides by one row when an offset is one above the
+    last; window rows it never read are NaN, so a stale one shows."""
+    G, D, S, _ = dvb.shape
+    n = meta["n"]
+    i = np.arange(-(-n // run))[:, None] * run + np.arange(run)
+    sg = i >> 7
+    assert (sg == sg[:, :1]).all()
+    g, s = sg // S, sg % S
+    flat = dvb.reshape(-1)
+    acc = np.zeros(i.shape + x.shape[1:], x.dtype)
+    win = np.full_like(acc, np.nan)
+    prev = None
+    for d, off in enumerate(offsets):
+        w = flat[((g * D + d) * S + s) * 128 + (i & 127)].astype(x.dtype)
+        j = i + off
+        ok = (j >= 0) & (j < n)
+        if prev is not None and off == prev + 1:
+            win[:, :-1] = win[:, 1:]
+            last = ok[:, -1]
+            win[last, -1] = x[j[last, -1]]
+        else:
+            win[ok] = x[j[ok]]
+        prev = off
+        acc[ok] += w[ok][:, None] * win[ok]
+    return acc.reshape(-1, x.shape[1])[:n]
+
+
+@pytest.mark.parametrize("n,offsets", BANDED_CASES)
+@pytest.mark.parametrize("k", [2, 16])
+def test_dia_wide_kernel_index_math(n, offsets, k):
+    """The wide instance's row runs and sliding window give the narrow
+    instance's sums bit for bit (f64, the same order), and the plain
+    version's to rounding in f32."""
+    run = _wide_run()
+    assert run >= 1 and 128 % run == 0
+    meta, dvb = _banded(n, offsets, np.float64, seed=9)
+    x = np.random.default_rng(10).standard_normal((n, k))
+    got = emulate_dia_wide_kernel(offsets, dvb, meta, x, run)
+    assert np.array_equal(got, emulate_dia_kernel(offsets, dvb, meta, x))
+    x32, dvb32 = x.astype(np.float32), dvb.astype(np.float32)
+    want = spmv_banded.dia_spmv_reference(offsets, torch.from_numpy(dvb32),
+                                          meta, torch.from_numpy(x32))
+    _close(emulate_dia_wide_kernel(offsets, dvb32, meta, x32, run),
+           want.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 8, 9, 16, 17, 32, 33])
+@pytest.mark.parametrize("is_complex", [False, True])
+def test_dia_kernel_instance_routing(k, is_complex):
+    """One real column takes the narrow instance; two or more the wide one,
+    16 columns a launch; complex operands the complex instantiation, 8 a
+    launch.  The launches cover the columns once, in order."""
+    instance, width = spmv_banded.kernel_instance(k, is_complex)
+    assert (instance, width) == (("complex", 8) if is_complex else
+                                 ("narrow", 8) if k == 1 else ("wide", 16))
+    chunks = spmv_banded.column_chunks(k, width)
+    assert len(chunks) == -(-k // width)
+    assert [c for c0, cols in chunks for c in range(c0, c0 + cols)] == \
+        list(range(k))
+    assert all(1 <= cols <= width for _, cols in chunks)
 
 
 def _fem_like(n, n_off=24, spread=500, seed=0):
