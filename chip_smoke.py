@@ -14,8 +14,9 @@ exits non-zero:
    C++ host library with ``g++``;
 3. kernel A (banded SpMV) against its plain PyTorch version on the card:
    small random banded matrices with k in {1, 3, 8, 9} in f32, f64 and
-   bf16/f16 storage, and the 27-point stencil at nx=160 with k=1, timed
-   beside its byte bound, its plain version and cuSPARSE;
+   bf16/f16 storage, and the 27-point stencil at nx=160 with k=1 and with
+   k=16 (the wide instance, bit for bit the k=1 kernel column by column),
+   timed beside its byte bound, its plain version and cuSPARSE;
 4. kernel B (packed windowed-ELL SpMV: ``sell_spmv.cu`` over the packed
    slab's compact stream), the same on small matrices in every type pair
    and, against the stream's plain version and the slab's, on the locally
@@ -31,7 +32,10 @@ exits non-zero:
    inverse, and four more built with TF32 turned on by the caller;
 6. main path, banded: ``Csr.from_data`` of the nx=160 stencil on the card
    (``banded`` layout), Jacobi-CG to the tolerance below, with kernel A's
-   launch count and the true residual recomputed independently;
+   launch count and the true residual recomputed independently; then
+   Jacobi-CG on a block of 16 random right-hand sides of the f64 nx=64
+   stencil in one solve, on kernel A's wide instance, each column in the
+   iterations of its own one-column solve;
 7. main path, packed: the same on the permuted matrix (``packed`` layout),
    in the iterations the slab kernel took (``SLAB_ITERATIONS``, as the
    ILU and ILUT paths below);
@@ -1150,6 +1154,57 @@ def main_path(label, A, strategy, kernel):
         raise AssertionError(f"{label}: true relative residual {true_rel:.3e}"
                              f" > {TRUE_RESIDUAL_LIMIT}")
     return launches, iters, res.x, ms
+
+
+BLOCK_RHS_NX = 64       # the block solve's stencil, in f64
+BLOCK_RHS_TOL = 1e-8
+
+
+def main_block_rhs(d):
+    """Jacobi-CG on ``WIDE_K`` random right-hand sides of the f64 stencil
+    ``d`` in one solve, every SpMV of the block on kernel A's wide
+    instance: each column converges in the iterations its own one-column
+    solve takes (in f64 the block's column sums, taken in another order,
+    cannot move a count) to a true residual under the tolerance."""
+    A = gtt.Csr.from_data(d, dtype=np.float64)
+    assert A.strategy == "banded", A.strategy
+    n = A.shape[0]
+    g = torch.Generator(device=DEV).manual_seed(WIDE_K)
+    b = torch.randn((n, WIDE_K), generator=g, dtype=torch.float64,
+                    device=DEV)
+
+    def solve(rhs):
+        return Cg.solve(A, rhs, preconditioner=Jacobi(),
+                        criteria=Iteration(2000) | ResidualNorm(BLOCK_RHS_TOL))
+
+    reset_counters()
+    t0 = time.perf_counter()
+    res = solve(b)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    iters = [int(i) for i in res.iterations]
+    col_iters = [int(solve(b[:, c].contiguous()).iterations[0])
+                 for c in range(WIDE_K)]
+    true_rel = max(true_rel_residual(A, b[:, c], res.x[:, c])
+                   for c in range(WIDE_K))
+    say("main_block_rhs", n=n, nnz=A.nnz, k=WIDE_K, dtype=str(A.dtype),
+        iterations=iters, column_iterations=col_iters,
+        converged=bool(res.converged.all()), solve_s=seconds,
+        ms_per_iteration=seconds * 1e3 / max(max(iters), 1),
+        true_rel_residual=true_rel, launches=seen(launches))
+    if launches["dia_spmv_wide"] <= 0:
+        raise AssertionError("block CG never launched kernel A's wide "
+                             "instance")
+    if not bool(res.converged.all()):
+        raise AssertionError("block CG did not converge")
+    if iters != col_iters:
+        raise AssertionError(f"block CG: iterations {iters}, one column at "
+                             f"a time {col_iters}")
+    if not (np.isfinite(true_rel) and true_rel <= BLOCK_RHS_TOL):
+        raise AssertionError(f"block CG: true relative residual "
+                             f"{true_rel:.3e} > {BLOCK_RHS_TOL}")
+    return launches
 
 
 def check_iterations(label, iters):
@@ -4913,6 +4968,7 @@ def main() -> int:
     banded_launches, banded_iters, _, banded_ms = main_path(
         "banded", Ab, "banded", "dia_spmv")
     runs = [banded_launches,
+            main_block_rhs(stencil_3d(BLOCK_RHS_NX, points=27)),
             main_path("packed", Ap, "packed", "pell_spmv")[0],
             ilu_launches, ilut_launches, regenerate_launches,
             main_ilut(Ai, Mt, ilu_iters, bare_iters), onehot_launches,

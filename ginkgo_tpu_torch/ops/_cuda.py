@@ -24,35 +24,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# name -> (entry point, argtypes); every launcher returns cudaGetLastError()
+# vcode, xcode, dvb, offsets, D, S, n, x, ldx, y, ldy, k, stream
+_DIA_ARGS = [_I, _I, _P, _P, _I, _I, _L, _P, _L, _P, _L, _I, _P]
+# name -> {entry point: argtypes}; every launcher returns cudaGetLastError()
 SIGNATURES = {
-    # vcode, xcode, dvb, offsets, D, S, n, x, ldx, y, ldy, k, stream
-    "dia_spmv": ("dia_spmv_launch",
-                 [_I, _I, _P, _P, _I, _I, _L, _P, _L, _P, _L, _I, _P]),
+    # kernel A: one real column or up to 8 complex ones; its wide instance
+    # for 2 to 16 real columns
+    "dia_spmv": {"dia_spmv_launch": _DIA_ARGS,
+                 "dia_spmv_wide_launch": _DIA_ARGS},
     # vcode, xcode, sv, sc, sp, xbase, n_slices, n, m, x, ldx, y, ldy, k,
     # stream
-    "sell_spmv": ("sell_spmv_launch",
+    "sell_spmv": {"sell_spmv_launch":
                   [_I, _I, _P, _P, _P, _P, _L, _L, _L, _P, _L, _P, _L, _I,
-                   _P]),
+                   _P]},
     # xcode, inv, crossi, crossv, nwv, nb, P, Wv, n, flip, b, ldb, x, ldx,
     # k, stream
-    "tri_packed": ("tri_packed_launch",
+    "tri_packed": {"tri_packed_launch":
                    [_I, _P, _P, _P, _P, _I, _I, _I, _L, _I, _P, _L, _P, _L,
-                    _I, _P]),
+                    _I, _P]},
     # mode, vcode, a, na, b, nb, cl, cu, co, vstart, va, vb, tstart, T,
     # n_out, tl, tu, tseg, tpo, nseg, y, stream
-    "pair_contract": ("pair_contract_launch",
+    "pair_contract": {"pair_contract_launch":
                       [_I, _I, _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _L, _P, _P, _P, _P, _I, _P, _P]),
+                       _I, _L, _P, _P, _P, _P, _I, _P, _P]},
     # dst (row i of the store), src, elements, element size, stream
-    "row_write": ("row_write_launch", [_P, _P, _L, _I, _P]),
-}
-
-# name -> {entry point: argtypes}: a library's further launchers
-MORE_ENTRIES = {
-    # kernel A's wide instance (k >= 2 real columns), dia_spmv_launch's
-    # arguments
-    "dia_spmv": {"dia_spmv_wide_launch": SIGNATURES["dia_spmv"][1]},
+    "row_write": {"row_write_launch": [_P, _P, _L, _I, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -112,8 +108,7 @@ def library(name: str) -> ctypes.CDLL:
         if not path.exists():
             build((name,))
         lib = ctypes.CDLL(str(path))
-        for entry, argtypes in (SIGNATURES[name],
-                                *MORE_ENTRIES.get(name, {}).items()):
+        for entry, argtypes in SIGNATURES[name].items():
             fn = getattr(lib, entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

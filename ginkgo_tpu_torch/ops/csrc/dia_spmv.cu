@@ -4,7 +4,7 @@
 // (built by _build_dia_call, driven by dia_spmv_tpu).  It computes
 //
 //     y[i, c] = sum_d dvb[g, d, s, l] * x[i + off_d, c],
-//     i = (g * S + s) * 128 + l,  0 <= i < n,  c < K <= 8,
+//     i = (g * S + s) * 128 + l,  0 <= i < n,  c < K (a launch's columns),
 //
 // on the build-time blocked layout dvb (G, D, S, 128) of
 // ginkgo_tpu_torch/ops/spmv_banded.py::block_diag_values.
@@ -17,8 +17,10 @@
 // Design, the simple one that is right first:
 //   * one thread per row i; for a fixed (g, d) the dvb addresses are
 //     contiguous along i, so a warp's loads coalesce into full sectors;
-//   * each thread handles all K columns of its row, so one dvb pass serves
-//     up to 8 right-hand sides (the SpMM amortisation of the TPU kernel);
+//   * real values take this kernel at K = 1 only (two or more real columns
+//     take the wide instance below); complex ones at K <= 8, each thread
+//     handling all K columns of its row, so one dvb pass serves up to 8
+//     right-hand sides (the SpMM amortisation of the TPU kernel);
 //   * x is read in place with a bounds check (0 <= i + off < n) instead of
 //     the TPU kernel's LO/HI padded copy; the planner stores the clipped
 //     boundary entries as 0, so the masked read gives the same sum;
@@ -40,10 +42,10 @@
 //
 // The wide instance (dia_spmv_wide_kernel, dia_spmv_wide_launch) takes the
 // real pairs at k >= 2, up to kWideCols = 16 columns a launch.  The narrow
-// one above, at k = 16, streams dvb twice (two 8-column launches) and, worse,
-// one thread a row reads x[j, c] as scalars 4 * ldx bytes apart on
-// neighbouring lanes: each load of a warp touches 16 cache lines for 128
-// useful bytes, so it is bound by L1 wavefronts: 3.67 ms an apply at the
+// kernel above, run at k = 16, streamed dvb twice (two 8-column launches)
+// and, worse, one thread a row read x[j, c] as scalars 4 * ldx bytes apart
+// on neighbouring lanes: each load of a warp touched 16 cache lines for 128
+// useful bytes, so it was bound by L1 wavefronts: 3.67 ms an apply at the
 // HPCG 27-point system (n = 4,096,000, k = 16, f32), 7.8 % of its roofline.
 // Bound of the wide instance: bytes.  There, 437 MB of band values (446 MB
 // of dvb with the padding), 262 MB of x and 262 MB of y: 0.287 ms at
@@ -69,6 +71,15 @@
 //     0.60-0.73; reading band values two or three diagonals ahead, or
 //     serving a whole offset triple from one window, cost registers and
 //     ran slower (0.67-0.76);
+//   * at 32 registers ptxas spills in the 32-bit instantiations: 4 B of
+//     stores and 4 B of loads for f32, bf16 and f16 storage at P = 2 and 4,
+//     8 / 24 B for f64 at P = 1 and 16 / 52 B at P = 2, 4 and 8.  The spill
+//     stays in L1 and costs less than the threads it buys: at k = 16 the
+//     spill-free 12 and 8 blocks an SM (40 and 64 registers) ran slower in
+//     every pair, f32 0.599 / 0.599 against 0.553 ms, bf16 and f16 0.705 /
+//     0.706 against 0.611, f64 1.477 / 1.645 against 1.338 (bounds 0.287,
+//     0.222, 0.574 ms; the narrow kernel's two 8-column launches 3.67,
+//     3.68, 7.23);
 //   * blocks stay in ascending row order, so the x rows that the next plane
 //     (offset +- nx ny) reads again are still in the 50 MB L2;
 //   * the same arithmetic: per (row, column) one accumulator, one
@@ -165,6 +176,7 @@ cudaError_t launch_k(const void* dvb, const int* offsets, int D, int S,
   return cudaGetLastError();
 }
 
+// the complex instantiations, K = 1 .. 8
 template <typename V, typename X, typename Acc>
 cudaError_t launch_typed(int k, const void* dvb, const int* offsets, int D,
                          int S, long long n, const void* x, long long ldx,
@@ -182,7 +194,16 @@ cudaError_t launch_typed(int k, const void* dvb, const int* offsets, int D,
   }
 }
 
-// -- the wide instance ---------------------------------------------------------
+// the real pairs, K = 1 (two or more columns take the wide instance)
+template <typename V, typename X>
+cudaError_t launch_real(int k, const void* dvb, const int* offsets, int D,
+                        int S, long long n, const void* x, long long ldx,
+                        void* y, long long ldy, cudaStream_t stream) {
+  if (k != 1) return cudaErrorInvalidValue;
+  return launch_k<V, X, X, 1>(dvb, offsets, D, S, n, x, ldx, y, ldy, stream);
+}
+
+// -- the wide instance --------------------------------------------------------
 
 constexpr int kWideCols = 16;      // columns a launch
 constexpr int kWideRun = 2;        // consecutive rows a thread walks
@@ -392,17 +413,16 @@ extern "C" int dia_spmv_launch(int vcode, int xcode, const void* dvb,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 0 || D <= 0 || S <= 0) return cudaErrorInvalidValue;
   if (xcode == kF32 && vcode == kF32)
-    return launch_typed<float, float, float>(k, dvb, offs, D, S, n, x, ldx,
-                                             y, ldy, st);
+    return launch_real<float, float>(k, dvb, offs, D, S, n, x, ldx, y, ldy, st);
   if (xcode == kF32 && vcode == kBF16)
-    return launch_typed<__nv_bfloat16, float, float>(k, dvb, offs, D, S, n,
-                                                     x, ldx, y, ldy, st);
+    return launch_real<__nv_bfloat16, float>(k, dvb, offs, D, S, n, x, ldx, y,
+                                             ldy, st);
   if (xcode == kF32 && vcode == kF16)
-    return launch_typed<__half, float, float>(k, dvb, offs, D, S, n, x, ldx,
-                                              y, ldy, st);
+    return launch_real<__half, float>(k, dvb, offs, D, S, n, x, ldx, y, ldy,
+                                      st);
   if (xcode == kF64 && vcode == kF64)
-    return launch_typed<double, double, double>(k, dvb, offs, D, S, n, x,
-                                                ldx, y, ldy, st);
+    return launch_real<double, double>(k, dvb, offs, D, S, n, x, ldx, y, ldy,
+                                       st);
   if (xcode == kC64 && vcode == kC64)
     return launch_typed<float2, float2, float2>(k, dvb, offs, D, S, n, x,
                                                 ldx, y, ldy, st);

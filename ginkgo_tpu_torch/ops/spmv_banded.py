@@ -31,7 +31,7 @@ from . import _cuda
 from .registry import register
 
 LANES = 128
-MAX_RHS = 8        # columns a launch of the narrow and complex instances
+MAX_RHS = 8        # columns a launch of the complex instantiation
 WIDE_RHS = 16      # columns a launch of the wide instance
 
 # (value storage, vector) dtypes the kernel takes: f32 math for f32 and
@@ -123,13 +123,13 @@ def _offsets_on(offsets: tuple, device: torch.device):
 
 
 def kernel_instance(k, is_complex):
-    """The instance of kernel A that takes ``k`` columns, and the columns
-    it takes a launch: complex operands the complex instantiation; one
-    real column the narrow instance (a thread a row); two or more the wide
-    one (lanes on 16-byte pieces of a row)."""
+    """The instance of kernel A that takes ``k`` columns: complex operands
+    the complex instantiation (``MAX_RHS`` columns a launch); one real
+    column the narrow instance (a thread a row); two or more the wide one
+    (lanes on 16-byte pieces of a row, ``WIDE_RHS`` columns a launch)."""
     if is_complex:
-        return "complex", MAX_RHS
-    return ("narrow", MAX_RHS) if k == 1 else ("wide", WIDE_RHS)
+        return "complex"
+    return "narrow" if k == 1 else "wide"
 
 
 def column_chunks(k, width):
@@ -150,8 +150,8 @@ def dia_spmv_cuda(offsets, dvb, meta, b, out=None):
     b = kernel_vector(dvb.dtype, b)
     if b.device.type != "cuda":
         return dia_spmv_reference(offsets, dvb, meta, b, out)
-    instance, width = kernel_instance(b.shape[-1],
-                                      b.is_complex() or dvb.is_complex())
+    instance = kernel_instance(b.shape[-1],
+                               b.is_complex() or dvb.is_complex())
     if instance == "complex":
         return dia_spmv_complex_cuda(offsets, dvb, meta, b, out)
     if instance == "wide":
@@ -159,9 +159,8 @@ def dia_spmv_cuda(offsets, dvb, meta, b, out=None):
     y = _output(offsets, dvb, meta, b, KERNEL_DTYPES, out)
     if y.numel() == 0:
         return y
-    for c0, cols in column_chunks(b.shape[1], width):
-        _launch("dia_spmv_launch", offsets, dvb, meta, b, y, c0, cols)
-        dia_spmv_cuda.launches += 1
+    _launch("dia_spmv_launch", offsets, dvb, meta, b, y, 0, 1)
+    dia_spmv_cuda.launches += 1
     return y
 
 

@@ -279,6 +279,10 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         spmv_banded.dia_spmv_cuda(offsets, dvb, meta, x.double())
     with pytest.raises(ValueError, match="contiguous"):
         spmv_banded.dia_spmv_cuda(offsets, dvb, meta, x.t().contiguous().t())
+    # the narrow entry takes one real column: more are the wide entry's
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        spmv_banded._launch("dia_spmv_launch", offsets, dvb, meta, x,
+                            torch.empty_like(x), 0, 2)
     # complex operands run the kernel's complex instantiation (no plane
     # split, no fallback); a pair it does not take still raises
     c64 = dvb.to(torch.complex64)

@@ -193,8 +193,7 @@ def test_type_codes_match_sources():
         src = (_cuda.SRC_DIR / f"{name}.cu").read_text()
         assert "enum TypeCode { kF32 = 0, kF64 = 1, kBF16 = 2, kF16 = 3 };" \
             in src
-        assert f'extern "C" int {_cuda.SIGNATURES[name][0]}(' in src
-        for entry in _cuda.MORE_ENTRIES.get(name, {}):
+        for entry in _cuda.SIGNATURES[name]:
             assert f'extern "C" int {entry}(' in src
     assert [_cuda.type_code(t) for t in (torch.float32, torch.float64,
                                          torch.bfloat16, torch.float16)] \

@@ -181,9 +181,12 @@ def test_dia_kernel_instance_routing(k, is_complex):
     """One real column takes the narrow instance; two or more the wide one,
     16 columns a launch; complex operands the complex instantiation, 8 a
     launch.  The launches cover the columns once, in order."""
-    instance, width = spmv_banded.kernel_instance(k, is_complex)
-    assert (instance, width) == (("complex", 8) if is_complex else
-                                 ("narrow", 8) if k == 1 else ("wide", 16))
+    instance = spmv_banded.kernel_instance(k, is_complex)
+    assert instance == ("complex" if is_complex else
+                        "narrow" if k == 1 else "wide")
+    width = {"complex": spmv_banded.MAX_RHS, "narrow": 1,
+             "wide": spmv_banded.WIDE_RHS}[instance]
+    assert (spmv_banded.MAX_RHS, spmv_banded.WIDE_RHS) == (8, 16)
     chunks = spmv_banded.column_chunks(k, width)
     assert len(chunks) == -(-k // width)
     assert [c for c0, cols in chunks for c in range(c0, c0 + cols)] == \

@@ -80,7 +80,7 @@ def build_other(src: Path, name: str, defines=()):
         if done.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{done.stderr}")
     dll = ctypes.CDLL(str(lib))
-    entry, argtypes = _cuda.SIGNATURES[name]
+    (entry, argtypes), = _cuda.SIGNATURES[name].items()
     fn = getattr(dll, entry)
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return fn, dll
