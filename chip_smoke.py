@@ -4723,8 +4723,6 @@ def examples_distributed():
 # The one-device phases above keep their operators' plans (RANK_CASES); the
 # ranks take slices of them, so nothing is planned again there.
 RANK_CASES: dict = {}
-RANK_FIELDS = (dist_matrix.INDEX_ARRAYS + dist_matrix.VALUE_ARRAYS
-               + tuple(dist_matrix.SLAB_ARRAYS))
 RANK_SOLVES = {"cg": (Cg, SOLVE_TOL, 2000), "bicgstab": (Bicgstab, ILU_TOL,
                                                           1000)}
 RANK_ITER_SLACK = 1               # the f32 all-reduce sums in another order
@@ -4738,13 +4736,11 @@ def rank_case(A, solver=None, iterations=None):
     g = torch.Generator(device=DEV).manual_seed(11)
     x = torch.randn((A.shape[0], 1), generator=g, device=DEV,
                     dtype=A.dtype)
+    arrays, static = A.host_plan()
     return dict(
-        arrays={name: None if getattr(A, name) is None
-                else getattr(A, name).cpu().numpy() for name in RANK_FIELDS},
-        static={name: getattr(A, name)
-                for name in dist_matrix.STATIC_FIELDS},
-        partition=A.host_partition, x=x.cpu().numpy(),
-        y=A.apply(x).cpu().numpy(), solver=solver, iterations=iterations,
+        arrays=arrays, static=static, partition=A.host_partition,
+        x=x.cpu().numpy(), y=A.apply(x).cpu().numpy(), solver=solver,
+        iterations=iterations,
         kernel="dia_spmv" if A.dia_vals is not None else "pell_spmv")
 
 

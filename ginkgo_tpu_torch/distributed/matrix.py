@@ -49,6 +49,7 @@ import torch.distributed as dist
 
 from ..base.matrix_data import MatrixData
 from ..base.linop import LinOp
+from ..log.profiler_hook import count, span
 from ..matrix.csr import _upload, host_value_types
 from ..ops.registry import lookup
 from ..ops.spmv_banded import kernel_vector
@@ -330,7 +331,11 @@ class DistributedMatrix(LinOp):
             like = on_rows(b, self.mesh, self.axis)
             b = like.to_local()
         b = kernel_vector(self.dtype, b).contiguous()
-        ghost = self.exchange(b)
+        with span("dist.exchange"):
+            # what this rank sends to other ranks
+            count("exchange_bytes",
+                  self.exchange_elems * b.element_size() * b.shape[1])
+            ghost = self.exchange(b)
         y = torch.empty_like(b)
         b3, y3 = b.view(P, local, -1), y.view(P, local, -1)
         if self.dia_vals is not None:
@@ -416,6 +421,18 @@ class DistributedMatrix(LinOp):
         return torch.from_numpy(dense)
 
     # -- construction (read_distributed analog) -------------------------------
+    def host_plan(self):
+        """(arrays, static): the planned ``(P', ...)`` arrays as numpy
+        (None where the layout has none) and the ``STATIC_FIELDS``, what
+        ``from_arrays`` takes.  Of a ``"schedule-only"`` build, the whole
+        plan on the host, for a leader that plans once and ships each rank
+        its slice (``rank_arrays``)."""
+        arrays = {name: None if getattr(self, name) is None
+                  else getattr(self, name).cpu().numpy()
+                  for name in INDEX_ARRAYS + VALUE_ARRAYS
+                  + tuple(SLAB_ARRAYS)}
+        return arrays, {name: getattr(self, name) for name in STATIC_FIELDS}
+
     @classmethod
     def from_arrays(cls, arrays: dict, static: dict, mesh,
                     index_dtype=torch.int32, dtype=None):

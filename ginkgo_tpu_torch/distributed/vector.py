@@ -19,8 +19,10 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..log.profiler_hook import span
 from ..matrix.dense import (compute_conj_dot, compute_dot, compute_norm1,
                             compute_norm2)
 from .partition import Partition
@@ -87,6 +89,66 @@ def on_rows(t, mesh, axis: str = "rows"):
     raise TypeError("an operator over ranks takes vectors sharded over "
                     "them (distribute_vector), got a plain tensor of shape "
                     f"{tuple(t.shape)}")
+
+
+def _to_padded(x, partition: Partition):
+    """The natural (n, k) block ``x`` in the padded layout, on its
+    device (``x`` itself where every part is full)."""
+    if partition.padded_size == partition.global_size:
+        return x
+    local, r = partition.local_size, partition.ranges
+    out = x.new_zeros((partition.padded_size,) + tuple(x.shape[1:]))
+    for p in range(partition.num_parts):
+        out[p * local:p * local + r[p + 1] - r[p]] = x[r[p]:r[p + 1]]
+    return out
+
+
+def _from_padded(xp, partition: Partition):
+    """The padded block ``xp`` in the natural layout, on its device."""
+    if partition.padded_size == partition.global_size:
+        return xp
+    local, r = partition.local_size, partition.ranges
+    return torch.cat([xp[p * local:p * local + r[p + 1] - r[p]]
+                      for p in range(partition.num_parts)])
+
+
+def scatter_rows(x, partition: Partition, mesh, src: int = 0, *, cols=None,
+                 dtype=None):
+    """The natural (n, k) block ``x`` on rank ``src``'s device as the
+    vector of the padded layout sharded over the mesh's rows (``Shard(0)``;
+    each rank's rows): one scatter of equal pieces, device to device.  The
+    other ranks pass ``x`` None and the block's ``cols`` and ``dtype``.
+    On a one-device mesh, the padded block itself."""
+    with span("dist.scatter"):
+        if not mesh.ranked:
+            return _to_padded(x, partition)
+        if mesh.rank == src:
+            cols, dtype = x.shape[1], x.dtype
+        rows = len(row_parts(mesh)) * partition.local_size
+        out = torch.empty((rows, cols), dtype=dtype, device=mesh.device)
+        pieces = None
+        if mesh.rank == src:
+            pieces = list(_to_padded(x, partition).contiguous().split(rows))
+        dist.scatter(out, pieces, src=src)
+        return shard(out, mesh)
+
+
+def gather_rows(v, partition: Partition, mesh, dst: int = 0):
+    """The natural (n, k) block of the sharded vector ``v`` on rank
+    ``dst``'s device, None on the other ranks: one gather of equal pieces,
+    device to device.  On a one-device mesh, ``v`` in the natural
+    layout."""
+    with span("dist.gather"):
+        if not mesh.ranked:
+            return _from_padded(v, partition)
+        mine = local_rows(v).contiguous()
+        full = pieces = None
+        if mesh.rank == dst:
+            full = mine.new_empty((partition.padded_size,)
+                                  + tuple(mine.shape[1:]))
+            pieces = list(full.split(mine.shape[0]))
+        dist.gather(mine, pieces, dst=dst)
+        return None if full is None else _from_padded(full, partition)
 
 
 class Vector:

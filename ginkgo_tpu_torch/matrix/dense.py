@@ -18,6 +18,7 @@ from ..base.dtypes import as_torch_dtype
 from ..base.linop import LinOp
 from ..base.matrix_data import MatrixData
 from ..device import resolve_device
+from ..log.profiler_hook import count, span
 from ..ops.registry import lookup
 
 
@@ -211,8 +212,13 @@ def _replicated(s):
     """A reduction over a vector sharded over ranks (a DTensor) is a
     partial sum on each rank: all-reduce it, so that every rank holds the
     same plain values (the reference's ``psum``) and takes the same
-    branch on them.  A plain tensor is returned as it is."""
-    return s.full_tensor() if isinstance(s, DTensor) else s
+    branch on them (span ``dist.allreduce``, counter ``allreduces``).  A
+    plain tensor is returned as it is."""
+    if not isinstance(s, DTensor):
+        return s
+    with span("dist.allreduce"):
+        count("allreduces")
+        return s.full_tensor()
 
 
 def compute_dot(a, b):
