@@ -191,19 +191,15 @@ def _die_with(leader: int):
         os._exit(1)
 
 
-def _follower_main(rank, world, backend, tmp, threads, timeout, leader,
-                   status):
+def _follower_main(rank, world, backend, tmp, timeout, leader, status):
     """A follower of a ``RankGroup``: join, then run each command that
     rank 0 broadcasts on the control group until the empty one, putting
     ``(rank, call, traceback or None)`` on ``status`` after each.  A
     command that cannot be received ends the follower."""
     _die_with(leader)
-    import torch
     import torch.distributed as dist
     from torch.distributed.tensor.experimental import implicit_replication
 
-    if threads:
-        torch.set_num_threads(int(threads))
     _join(rank, world, backend, tmp, timeout)
     control = dist.new_group(backend="gloo", timeout=CONTROL_TIMEOUT)
     try:
@@ -253,12 +249,12 @@ class RankGroup:
     at exit) ends the followers and destroys the process group.  A
     follower exits within moments of its leader's death, however the
     leader died, so make the group on a thread that outlives it (the main
-    thread).  ``threads``: torch's intra-op threads a follower.  A process
-    leads one group at a time (it has one default process group).
+    thread).  A follower takes torch's threads from the environment it
+    inherits (``OMP_NUM_THREADS``).  A process leads one group at a time
+    (it has one default process group).
     """
 
-    def __init__(self, world: int, backend: str, timeout: float = 600.0,
-                 threads: int | None = None):
+    def __init__(self, world: int, backend: str, timeout: float = 600.0):
         import torch.distributed as dist
         import torch.multiprocessing as mp
 
@@ -279,8 +275,8 @@ class RankGroup:
         try:
             for r in range(1, self.world):
                 p = ctx.Process(target=_follower_main, daemon=True, args=(
-                    r, self.world, backend, self._tmp, threads, join,
-                    os.getpid(), self._status))
+                    r, self.world, backend, self._tmp, join, os.getpid(),
+                    self._status))
                 p.start()
                 self._followers.append(p)
             _join(0, self.world, backend, self._tmp, join)

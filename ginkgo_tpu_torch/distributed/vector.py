@@ -112,42 +112,39 @@ def _from_padded(xp, partition: Partition):
                       for p in range(partition.num_parts)])
 
 
-def scatter_rows(x, partition: Partition, mesh, src: int = 0, *, cols=None,
-                 dtype=None):
-    """The natural (n, k) block ``x`` on rank ``src``'s device as the
-    vector of the padded layout sharded over the mesh's rows (``Shard(0)``;
-    each rank's rows): one scatter of equal pieces, device to device.  The
+def scatter_rows(x, partition: Partition, mesh, *, cols=None, dtype=None):
+    """The natural (n, k) block ``x`` on rank 0's device as the vector of
+    the padded layout sharded over the mesh's rows (``Shard(0)``; each
+    rank's rows): one scatter of equal pieces, device to device.  The
     other ranks pass ``x`` None and the block's ``cols`` and ``dtype``.
     On a one-device mesh, the padded block itself."""
     with span("dist.scatter"):
         if not mesh.ranked:
             return _to_padded(x, partition)
-        if mesh.rank == src:
-            cols, dtype = x.shape[1], x.dtype
         rows = len(row_parts(mesh)) * partition.local_size
-        out = torch.empty((rows, cols), dtype=dtype, device=mesh.device)
         pieces = None
-        if mesh.rank == src:
+        if mesh.rank == 0:
+            cols, dtype = x.shape[1], x.dtype
             pieces = list(_to_padded(x, partition).contiguous().split(rows))
-        dist.scatter(out, pieces, src=src)
+        out = torch.empty((rows, cols), dtype=dtype, device=mesh.device)
+        dist.scatter(out, pieces, src=0)
         return shard(out, mesh)
 
 
-def gather_rows(v, partition: Partition, mesh, dst: int = 0):
-    """The natural (n, k) block of the sharded vector ``v`` on rank
-    ``dst``'s device, None on the other ranks: one gather of equal pieces,
-    device to device.  On a one-device mesh, ``v`` in the natural
-    layout."""
+def gather_rows(v, partition: Partition, mesh):
+    """The natural (n, k) block of the sharded vector ``v`` on rank 0's
+    device, None on the other ranks: one gather of equal pieces, device to
+    device.  On a one-device mesh, ``v`` in the natural layout."""
     with span("dist.gather"):
         if not mesh.ranked:
             return _from_padded(v, partition)
         mine = local_rows(v).contiguous()
         full = pieces = None
-        if mesh.rank == dst:
+        if mesh.rank == 0:
             full = mine.new_empty((partition.padded_size,)
                                   + tuple(mine.shape[1:]))
             pieces = list(full.split(mine.shape[0]))
-        dist.gather(mine, pieces, dst=dst)
+        dist.gather(mine, pieces, dst=0)
         return None if full is None else _from_padded(full, partition)
 
 

@@ -1,0 +1,9 @@
+"""``precond_ms_per_iter`` in the four-card cell, on rank 0's card (its
+slab's scalar Jacobi): reported there moving ``peak_mem_gib`` (PERF.md,
+section 2)."""
+
+from pathlib import Path
+
+from perfbench.spec import load_module
+
+read = load_module(Path(__file__).with_name("precond_ms_per_iter.py")).read

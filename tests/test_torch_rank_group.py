@@ -19,6 +19,7 @@ JAX:
   krylov.py``) iterations in every column, x within 1e-10 of its x.
 """
 
+import os
 import signal
 import subprocess
 import sys
@@ -54,27 +55,30 @@ def group():
     """The module's group of 2 gloo ranks, made again if a test broke
     it."""
     if not _live or _live[0].closed:
-        _live[:] = [RankGroup(WORLD, "gloo", timeout=TIMEOUT, threads=1)]
+        _live[:] = [RankGroup(WORLD, "gloo", timeout=TIMEOUT)]
     yield _live[0]
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_thread_and_close_at_end():
-    """Rank 0 on one torch thread, as the followers (``threads=1``): under
-    the suite's workers more threads oversubscribe the cores and a solve
-    of a second takes a minute."""
+    """Every rank on one torch thread (the followers read
+    ``OMP_NUM_THREADS`` when they start): under the suite's workers more
+    threads oversubscribe the cores and a solve of a second takes a
+    minute."""
     threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-    for g in _live:
-        g.close()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(threads)
+        for g in _live:
+            g.close()
 
 
 LEADER = """
 import time
 from ginkgo_tpu_torch.distributed.launch import RankGroup
-group = RankGroup(2, "gloo", threads=1)
+group = RankGroup(2, "gloo")
 print(*group.pids, flush=True)
 time.sleep(600)
 """
@@ -85,7 +89,8 @@ def leader():
     """A leader of its own group, in a process of its own, started with
     the module so that its start overlaps the other tests."""
     proc = subprocess.Popen([sys.executable, "-c", LEADER], cwd=ROOT,
-                            stdout=subprocess.PIPE, text=True)
+                            stdout=subprocess.PIPE, text=True,
+                            env={**os.environ, "OMP_NUM_THREADS": "1"})
     yield proc
     proc.kill()
     proc.wait()
@@ -181,7 +186,7 @@ def test_a_failing_follower_fails_the_call(group):
 
 
 def test_a_hang_raises_timeout_error():
-    g = RankGroup(WORLD, "gloo", timeout=1, threads=1)
+    g = RankGroup(WORLD, "gloo", timeout=1)
     pids = g.pids
     t = time.monotonic()
     with pytest.raises(TimeoutError, match="within 1.0 s"):
